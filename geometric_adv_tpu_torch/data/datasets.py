@@ -1,0 +1,101 @@
+"""ShapeNetCore-layout loading and the deterministic 85/5/10 split.
+
+The loading half of ``geometric_adv_tpu/data/datasets.py`` (reference:
+src/in_out.py:12-218), with the same file order, the same seed-42 split with
+round-half-up boundaries and the same class concatenation, so the same
+examples land in the same sets (pinned by ``tests/test_torch_imports.py``).
+The in-memory ``PointCloudDataSet`` batch iterator belongs to AE training
+and is not ported yet; ``load_dataset`` returns the arrays.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+import re
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from geometric_adv_tpu_torch.data.ply import load_ply
+
+# reference: src/in_out.py:12-32 (public ShapeNetCore synset table)
+snc_synth_id_to_category = {
+    "02691156": "airplane", "02773838": "bag", "02801938": "basket",
+    "02808440": "bathtub", "02818832": "bed", "02828884": "bench",
+    "02834778": "bicycle", "02843684": "birdhouse", "02871439": "bookshelf",
+    "02876657": "bottle", "02880940": "bowl", "02924116": "bus",
+    "02933112": "cabinet", "02747177": "trash_bin", "02942699": "camera",
+    "02954340": "cap", "02958343": "car", "03001627": "chair",
+    "03046257": "clock", "03207941": "dishwasher", "03211117": "display",
+    "04379243": "table", "04401088": "telephone", "02946921": "can",
+    "04460130": "tower", "04468005": "train", "03085013": "keyboard",
+    "03261776": "earphone", "03325088": "faucet", "03337140": "file_cabinet",
+    "03467517": "guitar", "03513137": "helmet", "03593526": "jar",
+    "03624134": "knife", "03636649": "lamp", "03642806": "laptop",
+    "03691459": "loudspeaker", "03710193": "mailbox", "03759954": "microphone",
+    "03761084": "microwaves", "03790512": "motorbike", "03797390": "mug",
+    "03928116": "piano", "03938244": "pillow", "03948459": "pistol",
+    "03991062": "flowerpot", "04004475": "printer", "04074963": "remote",
+    "04090263": "rifle", "04099429": "rocket", "04225987": "skateboard",
+    "04256520": "sofa", "04330267": "stove", "04530566": "watercraft",
+    "04554684": "washer", "02858304": "boat", "02992529": "cellphone",
+}
+
+
+def create_dir(dir_path: str) -> str:
+    os.makedirs(dir_path, exist_ok=True)
+    return dir_path
+
+
+def files_in_subdirs(top_dir: str, search_pattern: str):
+    regex = re.compile(search_pattern)
+    for path, _, files in os.walk(top_dir):
+        for name in files:
+            full_name = osp.join(path, name)
+            if regex.search(full_name):
+                yield full_name
+
+
+def split_data(data, split=(0.85, 0.05, 0.10), seed=42):
+    """Seeded shuffle then round-half-up boundaries
+    (reference: src/in_out.py:194-218)."""
+    assert abs(sum(split) - 1.0) < 1e-9, "data split does not sum to 1"
+    num_examples = data.shape[0]
+    np.random.seed(seed)
+    perm = np.arange(num_examples)
+    np.random.shuffle(perm)
+    data = data[perm]
+    train_end = int(split[0] * num_examples + 0.5)
+    val_end = int((split[0] + split[1]) * num_examples + 0.5)
+    return data[:train_end], data[train_end:val_end], data[val_end:]
+
+
+def load_point_clouds_under_folder(top_dir, n_threads=8, file_ending=".ply"):
+    """[N, n, 3] clouds of every file under ``top_dir``, in sorted order."""
+    file_names = sorted(files_in_subdirs(top_dir, file_ending))
+    if not file_names:
+        raise FileNotFoundError(f"no {file_ending} files under {top_dir}")
+    with ThreadPoolExecutor(max_workers=n_threads) as pool:
+        return np.stack(list(pool.map(load_ply, file_names))).astype(np.float32)
+
+
+def load_dataset(class_names, set_type, input_dir, n_threads=8):
+    """Concatenate per-class split sets; returns (point_clouds [N, n, 3],
+    slice_idx, labels) (reference: src/in_out.py:112-147)."""
+    assert set_type in ("train_set", "val_set", "test_set")
+    set_pos = {"train_set": 0, "val_set": 1, "test_set": 2}[set_type]
+    cat2id = {v: k for k, v in snc_synth_id_to_category.items()}
+
+    parts = []
+    slice_idx = [0]
+    pc_label: list[int] = []
+    for i, name in enumerate(class_names):
+        class_dir = osp.join(input_dir, cat2id.get(name, name))
+        cur = split_data(load_point_clouds_under_folder(class_dir, n_threads))[
+            set_pos
+        ]
+        parts.append(cur)
+        slice_idx.append(slice_idx[-1] + len(cur))
+        pc_label += [i] * len(cur)
+    return np.vstack(parts), slice_idx, pc_label

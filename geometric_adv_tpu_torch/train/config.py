@@ -1,0 +1,138 @@
+"""Experiment configuration — a copy of ``geometric_adv_tpu/train/config.py``.
+
+The JAX package's ``geometric_adv_tpu.train`` imports jax, flax and optax
+from its ``__init__``, so the port keeps its own copy of this pure
+numpy/json dataclass, in the same ``configuration.json`` schema: either
+package loads what the other saved (pinned by ``tests/test_torch_imports.py``).
+Not copied yet, as nothing in the port calls them: ``from_reference_txt``
+(the reference-checkpoint importers, ROADMAP Queue 1 item 14),
+``default_train_params`` (AE training), ``copy``,
+``exists_and_is_not_none`` and ``resolved_n_output``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Any
+
+
+@dataclass
+class Configuration:
+    # --- core AE parameters (reference: src/autoencoder.py:26-33) ---
+    n_input: list = field(default_factory=lambda: [2048, 3])
+    n_output: list | None = None
+    is_denoising: bool = False
+    loss: str = "chamfer"  # {chamfer, emd}
+    bneck_size: int = 128
+    encoder_filters: list | None = None  # None -> [64,128,128,256,bneck]
+    decoder_sizes: list | None = None  # None -> [256,256] (+ n*3 out layer)
+    b_norm_decay: float = 0.9  # BN moving-stat momentum; 1.0 freezes stats
+    ae_dtype: str = "float32"  # compute dtype; "bfloat16" trades ~1e-3
+    #   metric drift for ~13% attack throughput (losses stay f32)
+
+    # --- training (reference: src/autoencoder.py:35-45, ae_templates.py:42-51)
+    training_epochs: int = 500
+    batch_size: int = 50
+    learning_rate: float = 0.0005
+    loss_display_step: int = 1
+    saver_step: int | None = 50
+    saver_max_to_keep: int | None = None
+    held_out_step: int | None = 5
+    train_dir: str | None = None
+    gauss_augment: dict | None = None
+    z_rotate: bool = False
+    debug: bool = False
+    n_z: int | None = None
+    latent_vs_recon: float = 1.0
+    consistent_io: bool | None = None
+    exponential_decay: bool = False
+    decay_steps: int | None = None  # in EPOCHS (reference keys on the epoch
+    #   counter, src/pointnet_ae.py:93-95); requires steps_per_epoch
+    steps_per_epoch: int | None = None
+    scan_epochs: bool = True  # False: host per-step loop (numpy RNG
+    #   augmentations) — an escape hatch / host-parity test path; True runs
+    #   each epoch as one device program incl. augmentations (device_augment)
+
+    # --- experiment identity (reference: autoencoder/train_ae.py:43-77) ---
+    experiment_name: str = "autoencoder"
+    object_class: list = field(default_factory=lambda: ["13l"])
+    class_names: list = field(
+        default_factory=lambda: [
+            "table", "car", "chair", "airplane", "sofa", "rifle", "lamp",
+            "watercraft", "bench", "loudspeaker", "cabinet", "display",
+            "telephone",
+        ]
+    )
+    sort_axes: bool = True
+
+    # --- attack stage (reference: attacker/run_attack.py:83-107) ---
+    ae_dir: str | None = None
+    ae_name: str | None = None
+    ae_restore_epoch: int | None = None
+    loss_adv_type: str = "chamfer"  # {latent, chamfer}
+    loss_dist_type: str = "chamfer"  # {pert, chamfer}
+    dist_weight_list: list = field(default_factory=lambda: [1.0])
+    max_point_pert_weight: float = 0.0
+    max_point_dist_weight: float = 0.0
+    target_pc_idx_type: str = "chamfer_nn_complete"
+    num_pc_for_attack: int = 25
+    num_pc_for_target: int = 5
+    correct_pred_only: bool = False
+    num_iterations: int = 500
+    num_iterations_thresh: int = 400
+    chamfer_refresh: int = 0  # >0: frozen-assignment chamfer fast mode —
+    #   NN assignments recomputed exactly every N attack iterations, held
+    #   frozen (pure elementwise loss+grad) in between; 0 = exact every
+    #   step (parity default). See attack/core.py::attack_batch, PARITY #13
+
+    # --- defense stage (reference: defender/run_defense_*.py) ---
+    defense_type: str | None = None  # {critical, surface}
+    knn_dist_thresh: float | None = None
+    num_knn: int | None = None
+
+    # free-form extensions, preserved across save/load
+    extra: dict = field(default_factory=dict)
+
+    # ------------------------------------------------------------------
+    @property
+    def n_points(self) -> int:
+        return self.n_input[0]
+
+    # --- serialization -------------------------------------------------
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "Configuration":
+        known = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {k: v for k, v in d.items() if k in known}
+        unknown = {k: v for k, v in d.items() if k not in known}
+        conf = cls(**kwargs)
+        if unknown:
+            conf.extra.update(unknown)
+        return conf
+
+    def __str__(self) -> str:
+        # Sorted key: value dump, one per line — the same human-readable
+        # format as the reference (src/autoencoder.py:62-73).
+        lines = []
+        for key in sorted(self.to_dict()):
+            lines.append("%30s: %s" % (key, getattr(self, key)))
+        return "\n".join(lines) + "\n"
+
+    def save(self, file_name: str) -> None:
+        """Write ``<file_name>.json`` + human-readable ``<file_name>.txt``
+        (reference: src/autoencoder.py:75-78)."""
+        os.makedirs(os.path.dirname(os.path.abspath(file_name)), exist_ok=True)
+        with open(file_name + ".json", "w") as f:
+            json.dump(self.to_dict(), f, indent=2, default=str)
+        with open(file_name + ".txt", "w") as f:
+            f.write(str(self))
+
+    @staticmethod
+    def load(file_name: str) -> "Configuration":
+        with open(file_name + ".json") as f:
+            return Configuration.from_dict(json.load(f))
