@@ -13,7 +13,8 @@ that iteration's metric read) and then takes the TF-exact Adam step. The
 JAX ``vmap`` over dist weights becomes an explicit W axis folded into the
 batch ([W*B, n, 3]); that is exact because the frozen AE acts on each
 example alone. Every chamfer goes through ``ops.chamfer.nn_distance``, so on
-the card the forward is kernel K1 and the gradient kernel K3.
+the card the forward is kernel K1 and the gradient kernel K3; an EMD victim's
+two losses go through ``ops.emd.emd_loss_fused`` (kernels K6 and K7).
 
 Semantic parity notes:
 - Adam replicates tf.train.AdamOptimizer (bias correction folded into lr_t,
@@ -29,8 +30,7 @@ Semantic parity notes:
 Not ported, with reasons: the TPU routing (``_calibrate_chamfer_impl``,
 ``BATCH_THE_TWO_CHAMFERS``, the fused-loss kernel K5 and the sparse encoder
 VJP) — the port takes the composed path; ``chamfer_refresh > 0`` (ROADMAP
-Queue 1 item 8), the EMD loss (item 11), meshes (item 16) and
-``binary_search_attack``.
+Queue 1 item 9), meshes (item 17) and ``binary_search_attack``.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from geometric_adv_tpu_torch.ops.chamfer import chamfer_loss_per_pc, nn_distance
+from geometric_adv_tpu_torch.ops.emd import emd_loss_fused
 
 # Pairs per attack call when the caller gives none: 1,024,000 point rows
 # (500 pairs at 2048 points), the JAX package's default dispatch size.
@@ -90,11 +91,8 @@ def init_pert(shape, device, stddev=1e-7, seed=55) -> torch.Tensor:
 
 
 def _check_loss_types(ae_loss_type, loss_adv_type, loss_dist_type):
-    if ae_loss_type != "chamfer":
-        raise NotImplementedError(
-            f"ae loss {ae_loss_type!r}: the EMD attack is not ported yet "
-            "(ROADMAP Queue 1 item 11)"
-        )
+    if ae_loss_type not in ("chamfer", "emd"):
+        raise ValueError(f"unknown ae loss {ae_loss_type!r}")
     if loss_adv_type not in ("chamfer", "latent"):
         raise ValueError(f"unknown loss_adv_type {loss_adv_type!r}")
     if loss_dist_type not in ("chamfer", "pert"):
@@ -118,11 +116,19 @@ def make_attack_loss(
         adv = x + pert
         z = encode(adv)
         recon = decode(z)
-        t_re = chamfer_loss_per_pc(recon, gt)
-        if max_point_dist_weight == 0.0:
+        if ae_loss_type == "emd":
+            t_re = emd_loss_fused(recon, gt)
+            # the reference's EMD branch is dead code (src/adv_ae.py:129-142,
+            # SURVEY section 2.2); the JAX package's repaired semantics use
+            # the per-example EMD cost for the distance and its max proxy
+            input_dist_per_pc = emd_loss_fused(adv, x)
+            max_dist_per_pc = input_dist_per_pc
+        elif max_point_dist_weight == 0.0:
+            t_re = chamfer_loss_per_pc(recon, gt)
             input_dist_per_pc = chamfer_loss_per_pc(adv, x)
             max_dist_per_pc = input_dist_per_pc  # unused (weight 0)
         else:
+            t_re = chamfer_loss_per_pc(recon, gt)
             # the max-point term needs the per-point d1 vector
             d1, _, d2, _ = nn_distance(adv, x)
             input_dist_per_pc = d1.mean(dim=-1) + d2.mean(dim=-1)
@@ -259,7 +265,7 @@ class AttackRunner:
         if int(getattr(conf, "chamfer_refresh", 0) or 0):
             raise NotImplementedError(
                 "chamfer_refresh > 0 (the frozen-assignment mode) is not "
-                "ported yet (ROADMAP Queue 1 item 8)"
+                "ported yet (ROADMAP Queue 1 item 9)"
             )
         _check_loss_types(conf.loss, conf.loss_adv_type, conf.loss_dist_type)
         self.model = model.eval().requires_grad_(False)

@@ -1,6 +1,6 @@
 """Shared CLI plumbing: device selection, eval-artifact loading and the
 attack context (``geometric_adv_tpu/cli/common.py`` without its multi-host
-wiring, which is ROADMAP Queue 1 item 16).
+wiring, which is ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations

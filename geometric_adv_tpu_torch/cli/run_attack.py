@@ -3,8 +3,9 @@ reference: attacker/run_attack.py).
 
 Per source class: assemble the source/target pair grid, run the attack over
 all dist weights, save the per-class artifacts (adversarial_metrics /
-_pc_input / _pc_recon / dist_weight). Flags keep the JAX stage's names; a
-value that selects work the port does not have yet raises."""
+_pc_input / _pc_recon / dist_weight). The victim's ``conf.loss`` (chamfer or
+EMD) selects the attack's losses. Flags keep the JAX stage's names; a value
+that selects work the port does not have yet raises."""
 
 import argparse
 import json
@@ -29,12 +30,12 @@ def _reject_unported(flags, device) -> None:
     unported = {
         "--chamfer_impl fused (kernel K5, ROADMAP Queue 2)":
             flags.chamfer_impl == "fused",
-        "--chamfer_refresh > 0 (ROADMAP Queue 1 item 8)":
+        "--chamfer_refresh > 0 (ROADMAP Queue 1 item 9)":
             flags.chamfer_refresh > 0,
-        "--encoder_vjp sparse (ROADMAP Queue 1 item 15)":
+        "--encoder_vjp sparse (ROADMAP Queue 1 item 16)":
             flags.encoder_vjp == "sparse",
         "--trace_dir (device traces)": flags.trace_dir is not None,
-        "--use_mesh 1 on more than one device (ROADMAP Queue 1 item 16)":
+        "--use_mesh 1 on more than one device (ROADMAP Queue 1 item 17)":
             bool(flags.use_mesh) and device.type == "cuda"
             and torch.cuda.device_count() > 1,
     }

@@ -4,8 +4,9 @@ The loading half of ``geometric_adv_tpu/data/datasets.py`` (reference:
 src/in_out.py:12-218), with the same file order, the same seed-42 split with
 round-half-up boundaries and the same class concatenation, so the same
 examples land in the same sets (pinned by ``tests/test_torch_imports.py``).
-The in-memory ``PointCloudDataSet`` batch iterator belongs to AE training
-and is not ported yet; ``load_dataset`` returns the arrays.
+``load_dataset`` returns the arrays. ``PointCloudDataSet`` is the in-memory
+set that AE training shuffles and batches: a copy of the original's
+construction, ``shuffle_data`` and ``next_batch``.
 """
 
 from __future__ import annotations
@@ -99,3 +100,60 @@ def load_dataset(class_names, set_type, input_dir, n_threads=8):
         slice_idx.append(slice_idx[-1] + len(cur))
         pc_label += [i] * len(cur)
     return np.vstack(parts), slice_idx, pc_label
+
+
+class PointCloudDataSet:
+    """In-memory dataset with epoch/batch iteration
+    (reference: src/in_out.py:221-338)."""
+
+    def __init__(
+        self, point_clouds, noise=None, labels=None, copy=True,
+        init_shuffle=True,
+    ):
+        self.num_examples = point_clouds.shape[0]
+        self.n_points = point_clouds.shape[1]
+
+        if labels is not None:
+            assert point_clouds.shape[0] == labels.shape[0]
+            self.labels = labels.copy() if copy else labels
+        else:
+            self.labels = np.ones(self.num_examples, dtype=np.int8)
+
+        if noise is not None:
+            self.noisy_point_clouds = noise.copy() if copy else noise
+        else:
+            self.noisy_point_clouds = None
+
+        self.point_clouds = point_clouds.copy() if copy else point_clouds
+        self.epochs_completed = 0
+        self._index_in_epoch = 0
+        if init_shuffle:
+            self.shuffle_data()
+
+    def shuffle_data(self, seed=None):
+        if seed is not None:
+            np.random.seed(seed)
+        perm = np.arange(self.num_examples)
+        np.random.shuffle(perm)
+        self.point_clouds = self.point_clouds[perm]
+        self.labels = self.labels[perm]
+        if self.noisy_point_clouds is not None:
+            self.noisy_point_clouds = self.noisy_point_clouds[perm]
+        return self
+
+    def next_batch(self, batch_size, shuffle=True, seed=None):
+        start = self._index_in_epoch
+        self._index_in_epoch += batch_size
+        if self._index_in_epoch > self.num_examples:
+            self.epochs_completed += 1
+            if shuffle:
+                self.shuffle_data(seed)
+            start = 0
+            self._index_in_epoch = batch_size
+        end = self._index_in_epoch
+        noise = (
+            None
+            if self.noisy_point_clouds is None
+            else self.noisy_point_clouds[start:end]
+        )
+        return self.point_clouds[start:end], self.labels[start:end], noise

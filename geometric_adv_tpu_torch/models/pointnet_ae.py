@@ -39,6 +39,7 @@ class PointNetAE(nn.Module):
         encoder_filters: Sequence[int] | None = None,
         decoder_sizes: Sequence[int] | None = None,
         close_with_tanh: bool = False,
+        bn_momentum: float = 0.9,
     ):
         super().__init__()
         filters = (
@@ -53,7 +54,7 @@ class PointNetAE(nn.Module):
         ) + (n_points * 3,)
         self.n_points = n_points
         self.close_with_tanh = close_with_tanh
-        self.encoder = PointMLP(3, filters)
+        self.encoder = PointMLP(3, filters, bn_momentum)
         self.decoder = FCStack(filters[-1], sizes)
 
     def forward(self, x: torch.Tensor):

@@ -28,7 +28,7 @@ def _on_cuda(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"chamfer ops run on cuda or cpu tensors, got {t.device}")
+    raise ValueError(f"the ops run on cuda or cpu tensors, got {t.device}")
 
 
 def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -2,10 +2,10 @@
 
 Same ``train_dir`` layout as ``geometric_adv_tpu/train/checkpoint.py``: the
 checkpoint of epoch E lives under ``<train_dir>/checkpoints/``, here as the
-file ``E.pt`` (``torch.save`` of the model's state dict and the epoch) beside
-the JAX package's orbax directory ``E``. Each package's ``latest_epoch``
-sees only its own kind, so both can share one ``train_dir``. Optimizer state
-comes with AE training (ROADMAP Queue 1 item 3).
+file ``E.pt`` (``torch.save`` of the model's state dict, the epoch and, from
+a training run, the Adam optimizer's state dict) beside the JAX package's
+orbax directory ``E``. Each package's ``latest_epoch`` sees only its own
+kind, so both can share one ``train_dir``.
 """
 
 from __future__ import annotations
@@ -23,13 +23,24 @@ def checkpoint_path(train_dir: str, epoch: int) -> str:
     )
 
 
-def save_checkpoint(train_dir: str, epoch: int, state_dict: dict) -> str:
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+def save_checkpoint(train_dir: str, epoch: int, state_dict: dict,
+                    opt_state: dict | None = None) -> str:
     path = checkpoint_path(train_dir, epoch)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(
-        {"state_dict": {k: v.detach().cpu() for k, v in state_dict.items()},
-         "epoch": int(epoch)},
+        {"state_dict": _to_cpu(state_dict), "epoch": int(epoch),
+         "opt_state": _to_cpu(opt_state)},
         tmp,
     )
     os.replace(tmp, path)
@@ -37,7 +48,8 @@ def save_checkpoint(train_dir: str, epoch: int, state_dict: dict) -> str:
 
 
 def restore_checkpoint(train_dir: str, epoch: int) -> dict:
-    """-> {"state_dict": {name: CPU tensor}, "epoch": int}."""
+    """-> {"state_dict": {name: CPU tensor}, "epoch": int, "opt_state":
+    the optimizer's state dict or None}."""
     return torch.load(
         checkpoint_path(train_dir, epoch), map_location="cpu", weights_only=True
     )

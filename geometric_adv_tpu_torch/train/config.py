@@ -4,10 +4,10 @@ The JAX package's ``geometric_adv_tpu.train`` imports jax, flax and optax
 from its ``__init__``, so the port keeps its own copy of this pure
 numpy/json dataclass, in the same ``configuration.json`` schema: either
 package loads what the other saved (pinned by ``tests/test_torch_imports.py``).
-Not copied yet, as nothing in the port calls them: ``from_reference_txt``
-(the reference-checkpoint importers, ROADMAP Queue 1 item 14),
-``default_train_params`` (AE training), ``copy``,
-``exists_and_is_not_none`` and ``resolved_n_output``.
+``default_train_params`` is copied too. Not copied yet, as nothing in the
+port calls them: ``from_reference_txt`` (the reference-checkpoint importers,
+ROADMAP Queue 1 item 15), ``copy``, ``exists_and_is_not_none`` and
+``resolved_n_output``.
 """
 
 from __future__ import annotations
@@ -136,3 +136,16 @@ class Configuration:
     def load(file_name: str) -> "Configuration":
         with open(file_name + ".json") as f:
             return Configuration.from_dict(json.load(f))
+
+
+def default_train_params() -> dict:
+    """reference: src/ae_templates.py:42-51."""
+    return {
+        "batch_size": 50,
+        "training_epochs": 500,
+        "denoising": False,
+        "learning_rate": 0.0005,
+        "z_rotate": False,
+        "saver_step": 50,
+        "loss_display_step": 1,
+    }

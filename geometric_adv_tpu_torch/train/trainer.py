@@ -1,32 +1,49 @@
-"""The inference half of the AE trainer: build, restore and batched
-forward passes of the victim (``geometric_adv_tpu/train/trainer.py``
-``AETrainer``, :155-257).
+"""AE training and batched inference of the victim
+(``geometric_adv_tpu/train/trainer.py`` ``AETrainer``; reference:
+src/autoencoder.py:85-331, src/pointnet_ae.py:101-138).
 
-Inference runs in eval mode in batches of 250 clouds under ``no_grad``;
-results come back as numpy. Training (Adam, BN train mode, augmentation) is
-ROADMAP Queue 1 item 3, and the EMD loss is item 11.
+A train step is forward in BN train mode, the mean per-cloud reconstruction
+loss (chamfer or EMD, ``conf.loss``), backward and one Adam update with
+optax's defaults (b1 0.9, b2 0.999, eps 1e-8 outside the square root), at
+the learning rate of the optional staircase epoch schedule. An epoch is a
+Python loop over batches with the data resident on the device, in the order
+of an on-device permutation drawn from a generator seeded with the epoch's
+number, so that a resumed run continues exactly. Inference runs in eval mode
+in batches of 250 clouds under ``no_grad``; results come back as numpy.
+Not ported: the mesh (ROADMAP Queue 1 item 17), ``evaluate``,
+``embedding_at_layer``, ``interpolate`` and ``get_pre_symmetry_*``.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from geometric_adv_tpu_torch.data.augment import apply_augmentations, device_augment
 from geometric_adv_tpu_torch.models.pointnet_ae import PointNetAE, init_weights
 from geometric_adv_tpu_torch.ops.chamfer import chamfer_loss_per_pc
+from geometric_adv_tpu_torch.ops.emd import emd_loss_per_pc
 from geometric_adv_tpu_torch.train import checkpoint as ckpt
 from geometric_adv_tpu_torch.train.config import Configuration
 
 
+def reconstruction_loss_per_pc(recon, gt, loss_type: str):
+    if loss_type == "chamfer":
+        return chamfer_loss_per_pc(recon, gt)
+    elif loss_type == "emd":
+        return emd_loss_per_pc(recon, gt)
+    raise ValueError(f"unknown loss {loss_type!r}")
+
+
 class AETrainer:
-    """Owns the victim model on ``device``; seeded init, then ``restore``."""
+    """Owns the victim model and its Adam optimizer on ``device``; seeded
+    init, then ``train`` or ``restore``."""
 
     def __init__(self, conf: Configuration, device, seed: int = 42):
-        if conf.loss != "chamfer":
-            raise NotImplementedError(
-                f"--loss {conf.loss}: the EMD loss is not ported yet "
-                "(ROADMAP Queue 1 item 11)"
-            )
+        if conf.loss not in ("chamfer", "emd"):
+            raise ValueError(f"unknown loss {conf.loss!r}")
         if (conf.ae_dtype or "float32") != "float32":
             raise NotImplementedError(
                 f"ae_dtype {conf.ae_dtype!r}: the port computes in float32 only"
@@ -38,30 +55,199 @@ class AETrainer:
             bneck_size=conf.bneck_size,
             encoder_filters=conf.encoder_filters,
             decoder_sizes=conf.decoder_sizes,
+            bn_momentum=conf.b_norm_decay,
         )
         init_weights(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
+        self.optimizer = torch.optim.Adam(
+            self.model.parameters(), lr=conf.learning_rate, betas=(0.9, 0.999),
+            eps=1e-8,
+        )
         self.epoch = 0
 
+    # --- training (reference: src/autoencoder.py:196-227) -----------------
+    def learning_rate(self, step: int) -> float:
+        """The rate of update ``step`` (0-based): the reference's staircase
+        halving keyed on the epoch with a 1e-5 floor
+        (src/pointnet_ae.py:93-95), or the constant rate."""
+        conf = self.conf
+        if conf.exponential_decay and conf.decay_steps:
+            spe = conf.steps_per_epoch or 1
+            return max(conf.learning_rate
+                       * 0.5 ** ((step // spe) // conf.decay_steps), 1e-5)
+        return conf.learning_rate
+
+    def _updates_done(self) -> int:
+        states = self.optimizer.state.values()
+        return int(next(iter(states))["step"]) if states else 0
+
+    def _train_step(self, x: torch.Tensor, gt: torch.Tensor):
+        """One Adam step on the batch; -> (mean loss, recon), on the device."""
+        self.model.train()
+        recon, _, _ = self.model(x)
+        loss = reconstruction_loss_per_pc(recon, gt, self.conf.loss).mean()
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        lr = self.learning_rate(self._updates_done())
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.optimizer.step()
+        self.model.eval()
+        return loss.detach(), recon.detach()
+
+    def partial_fit(self, x, gt=None):
+        """reference: src/autoencoder.py:105-125 -> (recon numpy, loss)."""
+        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+        gt = x if gt is None else torch.as_tensor(
+            np.asarray(gt, np.float32), device=self.device)
+        loss, recon = self._train_step(x, gt)
+        return recon.cpu().numpy(), float(loss)
+
+    def _epoch_generator(self, epoch: int) -> torch.Generator:
+        # one stream per epoch, seeded with its number (the JAX trainer keys
+        # its epochs on the epoch counter too): a run resumed at any epoch
+        # draws the same permutation and augmentations as an unbroken one
+        return torch.Generator(device=self.device).manual_seed(epoch)
+
+    def _device_epoch(self, data, feed, n_batches: int, conf) -> float:
+        """One epoch over device-resident clouds; -> mean batch loss."""
+        gen = self._epoch_generator(self.epoch + 1)
+        bs = conf.batch_size
+        perm = torch.randperm(data.shape[0], generator=gen,
+                              device=self.device)[: n_batches * bs]
+        gauss = conf.gauss_augment
+        augmented = gauss is not None or bool(conf.z_rotate)
+        losses = []
+        for i in range(n_batches):
+            idx = perm[i * bs:(i + 1) * bs]
+            gt, batch = data[idx], feed[idx]
+            if augmented:
+                batch = device_augment(
+                    batch, gen,
+                    gauss_mu=None if gauss is None else float(gauss["mu"]),
+                    gauss_sigma=None if gauss is None else float(gauss["sigma"]),
+                    z_rotate=bool(conf.z_rotate),
+                )
+                if not conf.is_denoising:
+                    # the augmented batch is its own ground truth
+                    # (reference: src/pointnet_ae.py:123-128)
+                    gt = batch
+            losses.append(self._train_step(batch, gt)[0])
+        return float(torch.stack(losses).mean()) if losses else 0.0
+
+    def _held_out_epoch(self, data, conf):
+        """Forward-only pass over ``data`` in host batches
+        (``_single_epoch(..., only_fw=True)``) -> (loss, seconds)."""
+        n_batches = data.num_examples // conf.batch_size
+        epoch_loss = 0.0
+        start = time.time()
+        for _ in range(n_batches):
+            if conf.is_denoising:
+                original, _, batch = data.next_batch(conf.batch_size)
+                if batch is None:
+                    batch = original
+            else:
+                batch, _, _ = data.next_batch(conf.batch_size)
+                original = None
+            batch = apply_augmentations(batch, conf).astype(np.float32)
+            if original is None:
+                original = batch
+            epoch_loss += float(self.get_loss_per_pc(
+                batch, original, batch_size=len(batch)).mean())
+        epoch_loss /= max(n_batches, 1)
+        if conf.loss == "emd":
+            epoch_loss /= data.n_points  # reference: pointnet_ae.py:135
+        return epoch_loss, time.time() - start
+
+    def train(self, train_data, conf=None, log_file=None, held_out_data=None):
+        """``conf.training_epochs`` epochs over a ``PointCloudDataSet``;
+        -> [(epoch, loss, seconds)] (reference: src/autoencoder.py:196-227)."""
+        conf = conf or self.conf
+        stats = []
+        n_batches = train_data.num_examples // conf.batch_size
+        data = torch.as_tensor(train_data.point_clouds.astype(np.float32),
+                               device=self.device)
+        feed = data
+        if conf.is_denoising and train_data.noisy_point_clouds is not None:
+            feed = torch.as_tensor(
+                train_data.noisy_point_clouds.astype(np.float32),
+                device=self.device)
+
+        for _ in range(conf.training_epochs):
+            t0 = time.time()
+            loss = self._device_epoch(data, feed, n_batches, conf)
+            if conf.loss == "emd":
+                loss /= train_data.n_points  # reference: pointnet_ae.py:135
+            duration = time.time() - t0
+            self.epoch += 1
+            epoch = self.epoch
+            stats.append((epoch, loss, duration))
+
+            if epoch % conf.loss_display_step == 0:
+                print(f"Epoch: {epoch:04d} training time (minutes)= "
+                      f"{duration / 60.0:.4f} loss= {loss:.9f}")
+                if log_file is not None:
+                    log_file.write(
+                        "%04d\t%.9f\t%.4f\n" % (epoch, loss, duration / 60.0)
+                    )
+
+            if conf.saver_step is not None and (
+                epoch % conf.saver_step == 0 or epoch == 1
+            ):
+                self.save(conf.train_dir, epoch)
+
+            if (
+                held_out_data is not None
+                and conf.held_out_step is not None
+                and epoch % conf.held_out_step == 0
+            ):
+                ho_loss, ho_dur = self._held_out_epoch(held_out_data, conf)
+                print(f"Held Out Data : forward time (minutes)= "
+                      f"{ho_dur / 60.0:.4f} loss= {ho_loss:.9f}")
+                if log_file is not None:
+                    log_file.write(
+                        "On Held_Out: %04d\t%.9f\t%.4f\n"
+                        % (epoch, ho_loss, ho_dur / 60.0)
+                    )
+        return stats
+
+    # --- checkpointing ----------------------------------------------------
     def save(self, train_dir, epoch=None):
         epoch = self.epoch if epoch is None else epoch
-        return ckpt.save_checkpoint(train_dir, epoch, self.model.state_dict())
+        return ckpt.save_checkpoint(train_dir, epoch, self.model.state_dict(),
+                                    self.optimizer.state_dict())
 
     def restore(self, train_dir, epoch=None):
+        """Weights, BN statistics, epoch and -- where the checkpoint has
+        them -- the Adam moments and step, so that a resumed run continues
+        exactly (reference: tf.train.Saver restores slot variables)."""
         if epoch is None:
             epoch = ckpt.latest_epoch(train_dir)
         if epoch is None:
             raise FileNotFoundError(f"no port checkpoints under {train_dir}")
         tree = ckpt.restore_checkpoint(train_dir, epoch)
         self.model.load_state_dict(tree["state_dict"])
+        if tree.get("opt_state") is not None:
+            self.optimizer.load_state_dict(tree["opt_state"])
         self.epoch = int(tree["epoch"])
         return self
 
+    def set_adam_state(self, per_param: dict) -> None:
+        """Install Adam state keyed by parameter name (the layout of
+        ``models.bridge.adam_state_from_optax``)."""
+        for name, p in self.model.named_parameters():
+            self.optimizer.state[p] = {
+                k: v.to(p.device) if k != "step" else v
+                for k, v in per_param[name].items()
+            }
+
+    # --- inference --------------------------------------------------------
     @torch.no_grad()
     def _batched_forward(self, pclouds, gt=None, batch_size=250,
                          outputs=("recon", "z", "pre", "loss")):
         """Chunked eval-mode inference; only the requested ``outputs`` are
         copied to the host."""
+        self.model.eval()
         gt = pclouds if gt is None else gt
         outs = {k: [] for k in outputs}
         for s in range(0, len(pclouds), batch_size):
@@ -76,7 +262,8 @@ class AETrainer:
                     np.asarray(gt[s : s + batch_size], np.float32),
                     device=self.device,
                 )
-                results["loss"] = chamfer_loss_per_pc(recon, gb)
+                results["loss"] = reconstruction_loss_per_pc(
+                    recon, gb, self.conf.loss)
             for k in outputs:
                 outs[k].append(results[k].cpu().numpy())
         return {k: np.concatenate(v) for k, v in outs.items()}

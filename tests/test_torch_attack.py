@@ -48,6 +48,7 @@ CASES = {
     "latent_pert": dict(weights=[1.0], kw=dict(loss_adv_type="latent",
                                                loss_dist_type="pert")),
     "max_point_dist": dict(weights=[1.0], kw=dict(max_point_dist_weight=0.5)),
+    "emd": dict(weights=[0.5, 2.0], kw=dict(ae_loss_type="emd", loss_dist_type="pert")),
 }
 
 
@@ -101,13 +102,28 @@ def test_attack_runner_batches_and_matches_single_call():
 
 
 def test_runner_rejects_unported_modes():
+    """chamfer_refresh > 0 still raises; an EMD victim's runner builds and
+    runs, its metrics finite and its T-RE the victim's EMD."""
+    from geometric_adv_tpu_torch.ops.emd import emd_loss_fused
     from geometric_adv_tpu_torch.train.config import Configuration
 
     _, _, model = tiny_victims()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         core.AttackRunner(model, Configuration(chamfer_refresh=5), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        core.AttackRunner(model, Configuration(loss="emd"), "cpu")
+    with pytest.raises(ValueError, match="unknown ae loss"):
+        core.AttackRunner(model, Configuration(loss="hausdorff"), "cpu")
+    conf = Configuration(loss="emd", n_input=[32, 3], num_iterations=4,
+                         num_iterations_thresh=2)
+    runner = core.AttackRunner(model, conf, "cpu")
+    rng = np.random.RandomState(3)
+    x, gt = (rng.rand(2, 32, 3).astype(np.float32) for _ in range(2))
+    tz = model.encode(torch.from_numpy(gt)).numpy()
+    out = runner.attack(x, tz, gt, np.ones(2, np.float32))
+    assert out.metrics.shape == (1, 2, 5) and np.isfinite(out.metrics).all()
+    recon = torch.from_numpy(out.pc_recon[0])
+    np.testing.assert_allclose(out.metrics[0, :, 4],
+                               emd_loss_fused(recon, torch.from_numpy(gt)).numpy(),
+                               rtol=1e-6)
 
 
 def test_adam_and_pert_losses_match_jax():

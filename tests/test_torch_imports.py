@@ -4,9 +4,11 @@ their originals in the JAX package.
 1. In a fresh interpreter where ``jax``, ``flax``, ``optax``, ``orbax`` and
    the JAX package itself cannot be imported, every module of
    ``geometric_adv_tpu_torch`` imports and the tiny slice runs through the
-   stage CLIs on ``--device cpu`` — as on a machine that has no JAX.
+   stage CLIs on ``--device cpu``, from ``train_ae --loss emd`` on — as on a
+   machine that has no JAX.
 2. The copies (``attack/pipeline.py``, ``train/config.py`` and the data /
-   artifact helpers) give the originals' results on the same inputs.
+   augmentation / artifact helpers) give the originals' results on the same
+   inputs.
 """
 
 import io
@@ -28,24 +30,23 @@ import geometric_adv_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert "geometric_adv_tpu_torch.cli.run_attack" in names, names
+for name in ("cli.run_attack", "cli.train_ae", "ops.emd", "ops.cuda.emd",
+             "ops.cuda.build", "train.trainer"):
+    assert "geometric_adv_tpu_torch." + name in names, names
 
 import numpy as np
 from geometric_adv_tpu_torch.cli import (
     evaluate_attack, get_dists_per_point, prepare_indices_for_attack,
-    run_attack, tst_ae)
+    run_attack, train_ae, tst_ae)
 from geometric_adv_tpu_torch.data.synthetic import make_shapenet_like_dir
-from geometric_adv_tpu_torch.train.config import Configuration
-from geometric_adv_tpu_torch.train.trainer import AETrainer
 
 d, ae = sys.argv[2], "log/ae"
 make_shapenet_like_dir(d + "/data/tiny", ["sphere", "cube", "torus"], 40, 64)
-conf = Configuration(n_input=[64, 3], bneck_size=16,
-                     class_names=["sphere", "cube", "torus"])
-conf.save(d + "/" + ae + "/configuration")
-AETrainer(conf, "cpu", seed=0).save(d + "/" + ae, 1)
 c = ["--project_dir", d, "--device", "cpu"]
 sel = ae + "/eval/sel_idx_rand_4_test_set_13l.npy"
+train_ae.main(c + ["--data_folder", "data/tiny", "--n_points", "64",
+                   "--bneck_size", "16", "--batch_size", "10", "--loss", "emd",
+                   "--training_epochs", "1", "--train_folder", ae])
 tst_ae.main(c + ["--data_folder", "data/tiny", "--train_folder", ae])
 prepare_indices_for_attack.main(c + [
     "--ae_folder", ae, "--get_rand_idx", "1", "--get_latent_nn_idx", "1",
@@ -147,6 +148,10 @@ def test_configuration_copy_round_trips_with_original(tmp_path):
     assert str(c) == str(b)
     assert open(tmp_path / "jax.txt").read() == str(c)
     assert {f for f in Copy().to_dict()} == {f for f in Orig().to_dict()}
+    from geometric_adv_tpu.train import config as orig_config
+    from geometric_adv_tpu_torch.train import config as copy_config
+
+    assert copy_config.default_train_params() == orig_config.default_train_params()
 
 
 def test_data_copies_match_originals(tmp_path):
@@ -182,6 +187,41 @@ def test_data_copies_match_originals(tmp_path):
         o_ply.save_ply(path, pts, binary=binary)
         np.testing.assert_array_equal(c_ply.load_ply(path), o_ply.load_ply(path))
     assert c_ds.snc_synth_id_to_category == o_ds.snc_synth_id_to_category
+
+
+def test_augment_and_dataset_copies_match_originals():
+    from geometric_adv_tpu.data import augment as o_aug
+    from geometric_adv_tpu.data import datasets as o_ds
+    from geometric_adv_tpu.train.config import Configuration
+    from geometric_adv_tpu_torch.data import augment as c_aug
+    from geometric_adv_tpu_torch.data import datasets as c_ds
+
+    for kw in (dict(), dict(deflection=0.5, z_only=False)):
+        np.testing.assert_array_equal(c_aug.rand_rotation_matrix(seed=4, **kw),
+                                      o_aug.rand_rotation_matrix(seed=4, **kw))
+    batch = np.random.RandomState(0).randn(3, 20, 3).astype(np.float32)
+    for conf in (Configuration(), Configuration(z_rotate=True),
+                 Configuration(gauss_augment={"mu": 0.1, "sigma": 0.02},
+                               z_rotate=True)):
+        outs = []
+        for mod in (c_aug, o_aug):
+            np.random.seed(9)
+            outs.append(mod.apply_augmentations(batch, conf))
+        np.testing.assert_array_equal(outs[0], outs[1])
+
+    pcs = np.random.RandomState(1).rand(23, 8, 3).astype(np.float32)
+    noise = pcs + 1.0
+    sets = [mod.PointCloudDataSet(pcs, noise=noise, labels=np.arange(23),
+                                  init_shuffle=False).shuffle_data(seed=55)
+            for mod in (c_ds, o_ds)]
+    for _ in range(7):  # wraps around once, reshuffling from numpy's stream
+        np.random.seed(3)
+        got = sets[0].next_batch(5)
+        np.random.seed(3)
+        want = sets[1].next_batch(5)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    assert sets[0].n_points == 8 and sets[0].epochs_completed == 1
 
 
 def test_utils_copies_match_originals(tmp_path):

@@ -104,6 +104,8 @@ def test_input_gradient_matches_jax():
 
 
 def test_seeded_init_is_deterministic_and_eval_only():
+    """Seeded init; train mode normalises with the batch statistics and
+    moves the running ones by (1 - momentum), eval mode leaves them."""
     a = init_weights(PointNetAE(64, 16), torch.Generator().manual_seed(3))
     b = init_weights(PointNetAE(64, 16), torch.Generator().manual_seed(3))
     for (ka, va), (kb, vb) in zip(a.state_dict().items(), b.state_dict().items()):
@@ -111,5 +113,16 @@ def test_seeded_init_is_deterministic_and_eval_only():
     w = a.encoder.conv_1.weight  # fan_in 64: truncated at 2 / sqrt(64) / .88
     assert w.abs().max() <= 2 * (1 / 8) / 0.87962566103423978 + 1e-6
     assert w.std().item() == pytest.approx(1 / 8, rel=0.1)
-    with pytest.raises(NotImplementedError):
-        a.train()(torch.zeros(1, 64, 3))
+    x = torch.from_numpy(np.random.RandomState(3).randn(4, 64, 3).astype(np.float32))
+    bn = a.encoder.bn_0
+    before = bn.running_mean.clone(), bn.running_var.clone()
+    with torch.no_grad():
+        a.eval()(x)
+    assert torch.equal(bn.running_mean, before[0])
+    with torch.no_grad():
+        pre = a.encoder.conv_0(x)
+        a.train()(x)
+    mean = pre.mean(dim=(0, 1))
+    var = (pre * pre).mean(dim=(0, 1)) - mean * mean
+    assert torch.allclose(bn.running_mean, 0.9 * before[0] + 0.1 * mean, atol=1e-6)
+    assert torch.allclose(bn.running_var, 0.9 * before[1] + 0.1 * var, atol=1e-6)
