@@ -14,35 +14,51 @@ the script exits non-zero:
    (one ``nvcc -c`` per source, all at once, then one link);
 3. kernel phase: each kernel's wrapper against its plain PyTorch version on
    the card at the main path's shapes, both timed (CUDA events):
-   - K1/K2/K3 at [64, 2048, 3] clouds and a ragged 2000 x 2048 case, with
-     exact ties: K1 and K2 values bit-equal and K1 indices equal, K3 within
-     2.6e-6;
+   - K1/K2/K3/K4 at [64, 2048, 3] clouds and a ragged 2000 x 2048 case,
+     with exact ties: K1 and K2 values bit-equal and K1 indices equal, K3
+     within 2.6e-6, K4 within 2.6e-6 of its plain version and of K3;
+   - K5 at [64, 2048^2], [64, 1024^2] and the ragged [16, 2000 x 2048],
+     [8, 1100 x 300], [8, 2500 x 2048]: d1 i1 d2 i2 bit-equal to K1 and the
+     plain version, nn1 = x2[i1], cnt1 equal, snn1 within 1e-5; the frozen
+     attack's payload op launches K5 at every shape, past 2048 points too;
+   - K8 (``nn_distance_hier``) on tie clouds and on the synthetic dataset's
+     surface clouds at [64, 2048^2]: values bit-equal to K1, indices equal;
+     timed beside K1;
    - K6/K7 (the EMD sweep) at [50, 1024^2] (K6, K7 and each other),
      [50, 2048^2] (K7) and the ragged [8, 1024 x 512], [8, 500 x 1000]:
      cost rtol 1e-5, gradients atol 1e-4 * max|g|, in grads mode with and
      without g2 and value-only, whose cost must be bit-equal;
-4. three legs through the port's stage CLIs on ``--device cuda``, each with
+4. six legs through the port's stage CLIs on ``--device cuda``, each with
    the launch counts zeroed just before and read just after:
    - chamfer: ``train_ae --loss chamfer`` (2048 points, 2 epochs), tst_ae,
      prepare_indices_for_attack (all three index kinds), run_attack
-     (500/400 iterations), get_dists_per_point, evaluate_attack; K1, K2 and
-     K3 must launch;
+     (500/400 iterations, routed by the runner's calibration),
+     get_dists_per_point, evaluate_attack; K1, K2 and K3 must launch;
+   - frozen-10: run_attack ``--chamfer_refresh 10`` on the same victim; K5
+     must launch exactly on the refresh schedule, K1, K2, K3 never;
+   - fused: run_attack ``--chamfer_impl fused``; K5 must launch, K1 and K3
+     never;
    - EMD: ``train_ae --loss emd`` (2048 points, batch 50, 3 epochs), then the
      same stages with run_attack cut to 100/80 iterations; K7 and K2 must
      launch;
    - EMD at 1024 points: ``train_ae --loss emd --n_points 1024`` (2 epochs)
      and tst_ae; K6 must launch;
+   - chamfer at 1024 points: ``train_ae --loss chamfer --n_points 1024``
+     (2 epochs) and tst_ae; K5 (the fused loss) must launch;
    all on a synthetic dataset of sphere, cube, torus and cone, 60 clouds each;
 5. output checks per leg: every artifact has the JAX stages' shape and is
-   finite, the training loss falls, the attack lowers the mean target
-   reconstruction error, and the attack on the card agrees with the same
+   finite, the training loss falls, each attack lowers the mean target
+   reconstruction error, and each attack on the card agrees with the same
    attack on the host CPU (plain versions) on a small input: all metrics for
-   chamfer, and for the EMD victim with the perturbation-norm distance; the
-   target-reconstruction metrics with the EMD distance;
-6. rates: train samples/s per leg, attack pair-iterations/s of both attack
-   legs and at the reference's batch of 250 pairs (with a torch.profiler
-   breakdown), the chamfer matrix's pair-evaluations/s, and the peak device
-   memory of each leg.
+   chamfer (exact, frozen-10 and fused), and for the EMD victim with the
+   perturbation-norm distance; the target-reconstruction metrics with the
+   EMD distance; the frozen attack refreshed every step agrees with the
+   exact one on the card;
+6. rates: train samples/s per leg, attack pair-iterations/s of every attack
+   leg and, for the exact, frozen-10 and fused chamfer attacks, at the
+   reference's batch of 250 pairs (each with a torch.profiler breakdown),
+   the chamfer matrix's pair-evaluations/s, and the peak device memory of
+   each leg.
 
 Its last lines are a JSON record of the kernels, the card as nvidia-smi
 reports it, and ``{"ok": true, "device": {...}}``. It writes only under
@@ -66,6 +82,7 @@ WORK = osp.join(ROOT, "build", "chip_smoke")
 CLASSES = ["sphere", "cube", "torus", "cone"]
 N_POINTS = 2048
 GRAD_TOL = 2.6e-6  # DESIGN.md section 6 gradient bar
+SNN_TOL = 1e-5  # K5's scatter sum (geometric_adv_tpu/cli/verify_tpu.py:409-416)
 EMD_COST_RTOL = 1e-5  # geometric_adv_tpu/cli/verify_tpu.py:482
 EMD_GRAD_REL = 1e-4
 EMD_ITERS = (100, 80)  # the EMD leg's attack, cut from the reference 500/400
@@ -76,6 +93,11 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "nn_distance_values_cuda": (CSRC + "nn_distance.cu",
                                 PALLAS + "chamfer_kernel_v2.py:194"),
     "chamfer_grad1_cuda": (CSRC + "chamfer_grad.cu", PALLAS + "chamfer_bwd_kernel.py:298"),
+    "chamfer_grad1_vpu_cuda": (CSRC + "chamfer_grad.cu",
+                               PALLAS + "chamfer_bwd_kernel.py:212"),
+    "chamfer_loss_payloads_cuda": (CSRC + "chamfer_payloads.cu",
+                                   PALLAS + "chamfer_loss_kernel.py:336"),
+    "nn_direction_hier_cuda": (CSRC + "nn_hier.cu", PALLAS + "chamfer_hier_kernel.py:237"),
     "emd_sweep_block_cuda": (CSRC + "emd_sweep.cu", PALLAS + "emd_fused_kernel.py:179"),
     "emd_sweep_tiled_cuda": (CSRC + "emd_sweep.cu", PALLAS + "emd_round_kernel.py:268"),
 }
@@ -112,7 +134,8 @@ def tie_clouds(b, n, m, seed):
 
 
 def chamfer_kernel_phase(cu, ch):
-    """K1/K2/K3 against their plain versions; returns the kernel records."""
+    """K1/K2/K3/K4 against their plain versions, K4 also against K3;
+    returns the kernel records."""
     records = {}
     for b, n, m in ((64, N_POINTS, N_POINTS), (16, 2000, N_POINTS)):
         x1, x2 = tie_clouds(b, n, m, seed=n)
@@ -124,6 +147,13 @@ def chamfer_kernel_phase(cu, ch):
         g2 = torch.rand(b, m, generator=g).cuda()
         k3 = cu.chamfer_grad1_cuda(x1, x2, i1, i2, g1, g2)
         p3 = ch.chamfer_grad1_plain(x1, x2, i1, i2, g1, g2)
+        k4 = cu.chamfer_grad1_vpu_cuda(x1, x2, i1, i2, g1, g2)
+        # K4's plain version on the host: its scatter sums run in ascending
+        # j, as K4's do; the card's atomic scatter sums in another order,
+        # which K4's x1 * cnt - sc cancellation magnifies (printed)
+        p4 = ch.chamfer_grad1_vpu_plain(
+            *(t.cpu() for t in (x1, x2, i1, i2, g1, g2))).cuda()
+        p4_card = ch.chamfer_grad1_vpu_plain(x1, x2, i1, i2, g1, g2)
         torch.cuda.synchronize()
         shape = f"[{b},{n},3]x[{b},{m},3]"
         if not (torch.equal(d1, r1) and torch.equal(d2, r2)):
@@ -135,8 +165,15 @@ def chamfer_kernel_phase(cu, ch):
         k3_err = (k3 - p3).abs().max().item()
         if not k3_err <= GRAD_TOL:
             fail(f"K3 differs from the plain version by {k3_err} at {shape}")
+        k4_err = (k4 - p4).abs().max().item()
+        k4_k3 = (k4 - k3).abs().max().item()
+        k4_card = (k4 - p4_card).abs().max().item()
         print(f"kernel check {shape}: K1 values+indices bit-equal, K2 "
-              f"bit-equal, K3 max abs err {k3_err:.3g} (tol {GRAD_TOL})")
+              f"bit-equal, K3 max abs err {k3_err:.3g}, K4 {k4_err:.3g} from its "
+              f"plain version and {k4_k3:.3g} from K3 (tol {GRAD_TOL}); K4 "
+              f"{k4_card:.3g} from its plain version on the card (atomic order)")
+        if not (k4_err <= GRAD_TOL and k4_k3 <= GRAD_TOL):
+            fail(f"K4 differs from its plain version or K3 at {shape}")
         if n == m:  # time at the main-path shape
             k1_err = max((d1 - r1).abs().max().item(), (d2 - r2).abs().max().item())
             k2_err = max((v1 - r1).abs().max().item(), (v2 - r2).abs().max().item())
@@ -158,14 +195,125 @@ def chamfer_kernel_phase(cu, ch):
                     sync_timed(lambda: ch.chamfer_grad1_plain(
                         x1, x2, i1, i2, g1, g2), 5),
                 ),
+                "chamfer_grad1_vpu_cuda": (
+                    k4_err,
+                    sync_timed(lambda: cu.chamfer_grad1_vpu_cuda(
+                        x1, x2, i1, i2, g1, g2), 20),
+                    sync_timed(lambda: ch.chamfer_grad1_vpu_plain(
+                        x1, x2, i1, i2, g1, g2), 5),
+                ),
             }
             for name, (err, ms, plain_ms) in timings.items():
                 records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
                 print(f"  {name} at {shape}: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms")
-        del x1, x2, d1, i1, d2, i2, r1, j1, r2, j2, v1, v2, k3, p3
+        del x1, x2, d1, i1, d2, i2, r1, j1, r2, j2, v1, v2, k3, p3, k4, p4, p4_card
     torch.cuda.synchronize()
     return records
+
+
+def payload_kernel_phase(cu, ch):
+    """K5 against K1, its plain version and the gather x2[i1], at the
+    attack's and the 1024-point trainer's shapes and three ragged ones, one
+    past the fused loss's 2048-point gate; the frozen attack's payload op
+    (``chamfer_frozen_payloads``) must launch K5 once at each shape."""
+    names = ("d1", "i1", "d2", "i2", "nn1", "snn1", "cnt1")
+    records = {}
+    for b, n, m in ((64, N_POINTS, N_POINTS), (64, 1024, 1024), (16, 2000, N_POINTS),
+                    (8, 1100, 300), (8, 2500, N_POINTS)):
+        x1, x2 = tie_clouds(b, n, m, seed=n + m + 1)
+        got = cu.chamfer_loss_payloads_cuda(x1, x2)
+        want = ch.chamfer_loss_payloads_plain(x1, x2)
+        k1 = cu.nn_distance_cuda(x1, x2)
+        before = cu.launch_counts()["chamfer_loss_payloads_cuda"]
+        frozen = ch.chamfer_frozen_payloads(x1, x2)
+        torch.cuda.synchronize()
+        shape = f"[{b},{n},3]x[{b},{m},3]"
+        if cu.launch_counts()["chamfer_loss_payloads_cuda"] != before + 1:
+            fail(f"the frozen payloads did not launch K5 at {shape}")
+        if not all(torch.equal(f, got[k]) for f, k in zip(frozen, (0, 2, 4, 5, 6))):
+            fail(f"the frozen payloads differ from K5's outputs at {shape}")
+        for k in range(4):
+            if not (torch.equal(got[k], want[k]) and torch.equal(got[k], k1[k])):
+                fail(f"K5 {names[k]} differs from K1 or the plain version at {shape}")
+        if not torch.equal(got[4], ch._take_points(x2, got[1])):
+            fail(f"K5 nn1 is not x2[i1] at {shape}")
+        if not torch.equal(got[6], want[6]):
+            fail(f"K5 cnt1 differs from the plain version at {shape}")
+        snn_err = (got[5] - want[5]).abs().max().item()
+        print(f"kernel check K5 {shape}: d1 i1 d2 i2 bit-equal to K1 and the plain "
+              f"version, nn1 = x2[i1], cnt1 equal, snn1 max abs err {snn_err:.3g} "
+              f"(tol {SNN_TOL}); the frozen payloads launched K5")
+        if not snn_err <= SNN_TOL:
+            fail(f"K5 snn1 differs from the plain version at {shape}")
+        if b == 64:
+            ms = sync_timed(lambda: cu.chamfer_loss_payloads_cuda(x1, x2), 20)
+            plain_ms = sync_timed(lambda: ch.chamfer_loss_payloads_plain(x1, x2), 5)
+            print(f"  chamfer_loss_payloads_cuda at {shape}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms")
+            if n == N_POINTS:
+                records["chamfer_loss_payloads_cuda"] = {
+                    "max_abs_err": snn_err, "ms": ms, "plain_ms": plain_ms}
+        del x1, x2, got, want, k1, frozen
+    torch.cuda.synchronize()
+    return records
+
+
+def surface_clouds(b, n, seed):
+    """Two [b, n, 3] batches of the synthetic dataset's shapes on the card."""
+    from geometric_adv_tpu_torch.data.synthetic import sample_shape
+
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(np.stack([
+        sample_shape(CLASSES[i % len(CLASSES)], n, rng) for i in range(b)
+    ]).astype(np.float32)).cuda() for _ in range(2))
+
+
+def hier_kernel_phase(cu, hier):
+    """K8: ``nn_distance_hier`` (K8 for both directions) bit-equal to K1,
+    values and indices, on tie clouds and surface clouds; on the sorted
+    surface clouds each direction against its plain version, timed beside
+    K1 at the same shape."""
+    b = 64
+    cases = {
+        f"tie clouds [{b},{N_POINTS},3]^2": tie_clouds(b, N_POINTS, N_POINTS, seed=5),
+        "tie clouds [16,2000,3]x[16,2048,3]": tie_clouds(16, 2000, N_POINTS, seed=6),
+        f"surface clouds [{b},{N_POINTS},3]^2": surface_clouds(b, N_POINTS, seed=3),
+    }
+    for label, (x, y) in cases.items():
+        got = hier.nn_distance_hier(x, y)
+        want = cu.nn_distance_cuda(x, y)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"K8 differs from K1 on the {label}")
+        print(f"kernel check K8 on the {label}: values bit-equal to K1, indices equal")
+    x, y = cases[f"surface clouds [{b},{N_POINTS},3]^2"]
+    xs, px, cyr_x = hier._prep(x)
+    ys, py, cyr_y = hier._prep(y)
+    args = ((xs, hier.seed_upper_bounds(xs, cyr_y), ys, py, cyr_y),
+            (ys, hier.seed_upper_bounds(ys, cyr_x), xs, px, cyr_x))
+    err = 0.0
+    for a in args:
+        got = cu.nn_direction_hier_cuda(*a)
+        want = hier.nn_direction_hier_plain(*a)
+        torch.cuda.synchronize()
+        err = max(err, (got[0] - want[0]).abs().max().item())
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail("K8 differs from its plain version on the sorted surface clouds")
+    ms = sync_timed(lambda: cu.nn_direction_hier_cuda(*args[0]), 20)
+    plain_ms = sync_timed(lambda: hier.nn_direction_hier_plain(*args[0]), 3)
+    both_ms = sync_timed(lambda: [cu.nn_direction_hier_cuda(*a) for a in args], 20)
+    full_ms = sync_timed(lambda: hier.nn_distance_hier(x, y), 10)
+    k1_ms = sync_timed(lambda: cu.nn_distance_cuda(x, y), 20)
+    tx, ty = cases[f"tie clouds [{b},{N_POINTS},3]^2"]
+    tie_ms = sync_timed(lambda: hier.nn_distance_hier(tx, ty), 10)
+    print(f"  nn_direction_hier_cuda on the sorted surface clouds: one direction "
+          f"{ms:.4f} ms (plain {plain_ms:.4f} ms), both directions {both_ms:.4f} "
+          f"ms; nn_distance_hier with its sorts {full_ms:.4f} ms (uniform tie "
+          f"clouds {tie_ms:.4f} ms); K1 at the same shape {k1_ms:.4f} ms")
+    torch.cuda.synchronize()
+    return {"nn_direction_hier_cuda": {"max_abs_err": err, "ms": ms,
+                                       "plain_ms": plain_ms}}
 
 
 def sweep_errors(got, want):
@@ -279,10 +427,23 @@ def train_stage(project, ae, data, n_points, loss, epochs):
              "--training_epochs", str(epochs), "--train_folder", ae])
 
 
+def attack_stage(project, ae, iters, out="attack_res", flags=()):
+    """run_attack on the card: 4 sources x 6 targets per class, ``iters``
+    (iterations, threshold), artifacts under eval/``out``."""
+    from geometric_adv_tpu_torch.cli import run_attack
+
+    return ("run_attack", run_attack.main,
+            ["--project_dir", project, "--device", "cuda", "--ae_folder", ae,
+             "--attack_pc_idx", f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy",
+             "--num_pc_for_attack", "4", "--num_pc_for_target", "2",
+             "--num_iterations", str(iters[0]),
+             "--num_iterations_thresh", str(iters[1]),
+             "--output_folder_name", out, *flags])
+
+
 def attack_stages(project, ae, data, iters):
     from geometric_adv_tpu_torch.cli import evaluate_attack, get_dists_per_point
-    from geometric_adv_tpu_torch.cli import prepare_indices_for_attack, run_attack
-    from geometric_adv_tpu_torch.cli import tst_ae
+    from geometric_adv_tpu_torch.cli import prepare_indices_for_attack, tst_ae
 
     sel = f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy"
     common = ["--project_dir", project]
@@ -294,11 +455,7 @@ def attack_stages(project, ae, data, iters):
          common + dev + ["--ae_folder", ae, "--get_rand_idx", "1",
                          "--get_latent_nn_idx", "1", "--get_chamfer_nn_idx", "1",
                          "--num_instance_per_class", "4"]),
-        ("run_attack", run_attack.main,
-         common + dev + ["--ae_folder", ae, "--attack_pc_idx", sel,
-                         "--num_pc_for_attack", "4", "--num_pc_for_target", "2",
-                         "--num_iterations", str(iters[0]),
-                         "--num_iterations_thresh", str(iters[1])]),
+        attack_stage(project, ae, iters),
         ("get_dists_per_point", get_dists_per_point.main,
          common + dev + ["--ae_folder", ae, "--attack_pc_idx", sel]),
         ("evaluate_attack", evaluate_attack.main,
@@ -368,13 +525,14 @@ def check_artifacts(project, ae, n_classes, n_test, n_points, bneck=128):
     print(f"artifacts of {ae}: {len(want)} checked (shapes, finite)")
 
 
-def check_attack_effect(project, ae):
+def check_attack_effect(project, ae, attack_folder="attack_res"):
     """Mean best T-RE of the attack vs the mean T-RE of the clean sources
-    against the same targets, in the victim's own loss."""
+    against the same targets, in the victim's own loss; prints the routing
+    the run recorded in attack_impl.json."""
     from geometric_adv_tpu_torch.cli.common import AttackContext, restore_victim
     from geometric_adv_tpu_torch.train.trainer import reconstruction_loss_per_pc
 
-    ctx = AttackContext(project, ae, attack_folder="attack_res",
+    ctx = AttackContext(project, ae, attack_folder=attack_folder,
                         attack_pc_idx=f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy")
     victim = restore_victim(ctx.conf, ctx.ae_dir, "cuda")
     best, clean = [], []
@@ -389,17 +547,22 @@ def check_attack_effect(project, ae):
         best.append(m[0, :, 4])
     best_mean = float(np.mean(np.concatenate(best)))
     clean_mean = float(np.mean(np.concatenate(clean)))
-    print(f"attack effect ({ctx.conf.loss} victim): mean best T-RE "
-          f"{best_mean:.6f} vs clean sources {clean_mean:.6f}")
+    impl = json.load(open(osp.join(ctx.attack_dir, "attack_impl.json")))
+    print(f"attack effect ({ctx.conf.loss} victim, {attack_folder}, routing "
+          f"{impl['attack_mode']}): mean best T-RE {best_mean:.6f} vs clean "
+          f"sources {clean_mean:.6f}")
     if not best_mean < clean_mean:
         fail("the attack did not lower the mean target reconstruction error")
-    return victim
+    return victim, impl
 
 
 def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
-                         columns=(0, 1, 2, 3, 4)):
+                         columns=(0, 1, 2, 3, 4), card_kw=None, ref_kw=None,
+                         ref_device="cpu"):
     """The attack on the card (kernels) against the same attack on the host
-    CPU (plain versions), ``pairs`` x 2048 points at two dist weights.
+    CPU (plain versions), ``pairs`` x 2048 points at two dist weights;
+    ``card_kw`` and ``ref_kw`` are attack_batch options of the two runs, and
+    ``ref_device`` "cuda" holds two modes against each other on the card.
     Tolerance rtol 1e-3 / atol 1e-5 on the metric ``columns`` (loss_adv,
     loss_dist, S-CD, T-NRE, T-RE): the card's and the host's BLAS sum the
     victim's matmuls in different orders, and the Adam steps carry that
@@ -414,33 +577,38 @@ def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
     ref = np.ones(pairs, np.float32)
     pert0 = (rng.randn(pairs, N_POINTS, 3) * 1e-7).astype(np.float32)
     outs = {}
-    for dev, model in (("cuda", victim.model),
-                       ("cpu", copy.deepcopy(victim.model).cpu())):
+    ref_model = (victim.model if ref_device == "cuda"
+                 else copy.deepcopy(victim.model).cpu())
+    for name, dev, model, kw in (("card", "cuda", victim.model, card_kw or {}),
+                                 ("ref", ref_device, ref_model, ref_kw or {})):
         t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         with torch.no_grad():
             tz = model.encode(t(gt))
-        outs[dev] = attack_batch(
+        outs[name] = attack_batch(
             model.encode, model.decode, t(x), tz, t(gt), t(ref), [1.0, 3.0],
             num_iterations=iters[0], num_iterations_thresh=iters[1],
-            ae_loss_type=loss, loss_dist_type=dist, pert0=t(pert0),
+            ae_loss_type=loss, loss_dist_type=dist, pert0=t(pert0), **kw,
         )
-    err = np.abs(outs["cuda"].metrics - outs["cpu"].metrics)
-    lim = 1e-5 + 1e-3 * np.abs(outs["cpu"].metrics)
+    err = np.abs(outs["card"].metrics - outs["ref"].metrics)
+    lim = 1e-5 + 1e-3 * np.abs(outs["ref"].metrics)
     held = list(columns)
-    rel = err / np.abs(outs["cpu"].metrics)
-    print(f"{loss} attack, loss_dist_type {dist}, card vs host ({pairs} pairs, "
-          f"{iters[0]} iterations): columns {held} max abs diff "
+    rel = err / np.abs(outs["ref"].metrics)
+    print(f"{loss} attack {card_kw or ''}, loss_dist_type {dist}, card vs "
+          f"{'host' if ref_device == 'cpu' else 'card'} {ref_kw or ''} ({pairs} "
+          f"pairs, {iters[0]} iterations): columns {held} max abs diff "
           f"{err[..., held].max():.3g}, max ratio to tolerance "
           f"{(err / lim)[..., held].max():.3g}; relative diff per column "
           f"{np.round(rel.max(axis=(0, 1)), 7).tolist()}")
     if not (err <= lim)[..., held].all():
-        fail(f"the {loss} attack on the card disagrees with the host's plain run")
+        fail(f"the {loss} attack {card_kw or ''} on the card disagrees with "
+             f"its reference run")
 
 
-def attack_at_reference_batch(victim, pairs=250, iters=20):
+def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20, **kw):
     """Attack pair-iterations/s at the reference's attack batch (250 pairs
-    of 2048-point clouds), then a torch.profiler breakdown of 5 iterations:
-    device time by kernel and the device's busy share of the wall clock."""
+    of 2048-point clouds), with the attack_batch options ``kw``, then a
+    torch.profiler breakdown of 5 iterations: device time by kernel and the
+    device's busy share of the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
     from geometric_adv_tpu_torch.attack.core import attack_batch
@@ -455,7 +623,7 @@ def attack_at_reference_batch(victim, pairs=250, iters=20):
 
     def run(n_iter):
         return attack_batch(model.encode, model.decode, x, tz, gt, ref, [1.0],
-                            num_iterations=n_iter, num_iterations_thresh=1)
+                            num_iterations=n_iter, num_iterations_thresh=1, **kw)
 
     run(2)  # warm-up
     torch.cuda.synchronize()
@@ -463,7 +631,7 @@ def attack_at_reference_batch(victim, pairs=250, iters=20):
     run(iters)
     torch.cuda.synchronize()
     rate = pairs * iters / (time.time() - t0)
-    print(f"attack at the reference batch: {rate:.1f} pair-iters/s "
+    print(f"{label} attack at the reference batch: {rate:.1f} pair-iters/s "
           f"({pairs} pairs x {N_POINTS} points, {iters} iterations)")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -481,7 +649,7 @@ def attack_at_reference_batch(victim, pairs=250, iters=20):
     if not rows:
         print("profile: no device time recorded (not measured)")
         return rate
-    print(f"profile of 5 iterations: device busy {busy_us / 1e3:.2f} ms of "
+    print(f"profile of 5 {label} iterations: device busy {busy_us / 1e3:.2f} ms of "
           f"{wall_us / 1e3:.2f} ms wall ({100 * busy_us / wall_us:.1f}%)")
     for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
         print(f"  {100 * us / busy_us:5.1f}%  {us / 1e3:8.3f} ms  x{count:<5d} "
@@ -514,6 +682,7 @@ def main() -> int:
         return 1
     from geometric_adv_tpu_torch.data.synthetic import make_shapenet_like_dir
     from geometric_adv_tpu_torch.ops import chamfer as ch
+    from geometric_adv_tpu_torch.ops import chamfer_hier as hier
     from geometric_adv_tpu_torch.ops import emd
     from geometric_adv_tpu_torch.ops.cuda import build
     from geometric_adv_tpu_torch.ops.cuda import chamfer as cu
@@ -534,7 +703,14 @@ def main() -> int:
         if "Used" in ln or "Compiling entry" in ln:
             print(f"  {ln.strip()}")
 
+    cu.reset_launch_counts()
     records = chamfer_kernel_phase(cu, ch)
+    records.update(payload_kernel_phase(cu, ch))
+    records.update(hier_kernel_phase(cu, hier))
+    # K4 and K8 are on no path of the package (as in the JAX package): their
+    # launch counts are the kernel phase's
+    phase_counts = cu.launch_counts()
+    print(f"kernel phase launches: {phase_counts}")
     records.update(emd_kernel_phase(cu_emd, emd))
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -559,15 +735,77 @@ def main() -> int:
     rates["chamfer train samples/s"] = check_training(project, ae, 2,
                                                       stages["train_ae"])
     check_artifacts(project, ae, len(CLASSES), n_test, N_POINTS)
-    victim = check_attack_effect(project, ae)
+    victim, impl = check_attack_effect(project, ae)
+    calib_s = impl["calibration_seconds"]
+    print(f"routing of the auto chamfer attack, as its calibration chose: "
+          f"{impl['attack_mode']} (measured at {impl['batch_size']} pairs per "
+          f"call, the attack's own batch, in {calib_s:.2f} s)")
     check_attack_vs_host(victim, "chamfer", 2, (30, 20))
-    seconds = stages["run_attack"][0]
+    # the stage's wall clock without the runner's calibration
+    seconds = stages["run_attack"][0] - calib_s
     rates["chamfer attack pair-iters/s"] = n_pairs * 500 / seconds
     print(f"chamfer attack {rates['chamfer attack pair-iters/s']:.1f} pair-iters/s "
-          f"({n_pairs} pairs x 500 iterations in {seconds:.2f} s, "
-          "stage wall clock)")
+          f"({n_pairs} pairs x 500 iterations in {seconds:.2f} s, stage wall "
+          f"clock less the calibration's {calib_s:.2f} s)")
     rates["chamfer matrix pair-evals/s"] = chamfer_matrix_rate(project, "data/synthetic")
     rates["reference-batch attack pair-iters/s"] = attack_at_reference_batch(victim)
+    del victim
+    torch.cuda.synchronize()
+
+    # --- frozen-assignment attack, refresh every 10 iterations (K5) ---------
+    counts, stages = leg("frozen-10 attack", counters, lambda: run_stages([
+        attack_stage(project, ae, (500, 400), "attack_res_frozen10",
+                     ["--chamfer_refresh", "10"])]), ("chamfer_loss_payloads_cuda",))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    # two chamfers x 51 chunks (501 steps, 50 of 10 and one of 1) x one
+    # attack call per class (24 pairs each)
+    schedule = 2 * -(-501 // 10) * len(CLASSES)
+    if counts["chamfer_loss_payloads_cuda"] != schedule:
+        fail(f"K5 ran {counts['chamfer_loss_payloads_cuda']} times in the frozen "
+             f"attack, the refresh schedule is {schedule}")
+    for k in ("nn_distance_cuda", "nn_distance_values_cuda", "chamfer_grad1_cuda"):
+        if counts[k]:
+            fail(f"{k} was launched in the frozen attack")
+    print(f"frozen-10 attack: K5 launched {schedule} times, the refresh schedule; "
+          "K1, K2, K3 not at all")
+    victim, impl = check_attack_effect(project, ae, "attack_res_frozen10")
+    if impl["attack_mode"] != "frozen-10":
+        fail(f"the frozen attack recorded routing {impl['attack_mode']}")
+    check_attack_vs_host(victim, "chamfer", 2, (30, 20),
+                         card_kw=dict(chamfer_refresh=10),
+                         ref_kw=dict(chamfer_refresh=10))
+    check_attack_vs_host(victim, "chamfer", 2, (30, 20),
+                         card_kw=dict(chamfer_refresh=1), ref_device="cuda")
+    seconds = stages["run_attack"][0]
+    rates["frozen-10 attack pair-iters/s"] = n_pairs * 500 / seconds
+    print(f"frozen-10 attack {rates['frozen-10 attack pair-iters/s']:.1f} "
+          f"pair-iters/s ({n_pairs} pairs x 500 iterations in {seconds:.2f} s, "
+          "stage wall clock)")
+    rates["frozen-10 reference-batch attack pair-iters/s"] = attack_at_reference_batch(
+        victim, "frozen-10", chamfer_refresh=10)
+    del victim
+    torch.cuda.synchronize()
+
+    # --- fused chamfer attack (K5 forward, elementwise backward) -----------
+    counts, stages = leg("fused attack", counters, lambda: run_stages([
+        attack_stage(project, ae, (500, 400), "attack_res_fused",
+                     ["--chamfer_impl", "fused"])]), ("chamfer_loss_payloads_cuda",))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    for k in ("nn_distance_cuda", "chamfer_grad1_cuda"):
+        if counts[k]:
+            fail(f"{k} was launched in the fused attack")
+    victim, impl = check_attack_effect(project, ae, "attack_res_fused")
+    if impl["attack_mode"] != "fused":
+        fail(f"the fused attack recorded routing {impl['attack_mode']}")
+    check_attack_vs_host(victim, "chamfer", 2, (30, 20),
+                         card_kw=dict(chamfer_method="fused"),
+                         ref_kw=dict(chamfer_method="fused"))
+    seconds = stages["run_attack"][0]
+    rates["fused attack pair-iters/s"] = n_pairs * 500 / seconds
+    print(f"fused attack {rates['fused attack pair-iters/s']:.1f} pair-iters/s "
+          f"({n_pairs} pairs x 500 iterations in {seconds:.2f} s, stage wall clock)")
+    rates["fused reference-batch attack pair-iters/s"] = attack_at_reference_batch(
+        victim, "fused", chamfer_method="fused")
     del victim
     torch.cuda.synchronize()
 
@@ -583,7 +821,7 @@ def main() -> int:
     rates["EMD train samples/s (2048)"] = check_training(project, ae, 3,
                                                          stages["train_ae"])
     check_artifacts(project, ae, len(CLASSES), n_test, N_POINTS)
-    victim = check_attack_effect(project, ae)
+    victim, _ = check_attack_effect(project, ae)
     # the EMD input distance's gradient, once the perturbation reaches the
     # point spacing, follows one-ulp differences (a one-ulp nudge of the
     # sources moved loss_dist by 6.3e-4 relative after 5 iterations on the
@@ -615,7 +853,22 @@ def main() -> int:
     check_artifacts(project, ae, len(CLASSES), n_test, 1024)
     torch.cuda.synchronize()
 
-    print(f"launches over the three legs: {launches}")
+    # --- chamfer at 1024 points: the fused loss (K5) in every train step ----
+    ae = "log/autoencoder_chamfer_1024"
+    counts, stages = leg("chamfer 1024", counters, lambda: run_stages([
+        train_stage(project, ae, data, 1024, "chamfer", 2),
+        ("tst_ae", tst_ae.main, ["--project_dir", project, "--device", "cuda",
+                                 "--data_folder", data, "--train_folder", ae]),
+    ]), ("chamfer_loss_payloads_cuda",))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    rates["chamfer train samples/s (1024)"] = check_training(project, ae, 2,
+                                                             stages["train_ae"])
+    check_artifacts(project, ae, len(CLASSES), n_test, 1024)
+    torch.cuda.synchronize()
+
+    for k in ("chamfer_grad1_vpu_cuda", "nn_direction_hier_cuda"):
+        launches[k] = phase_counts[k]
+    print(f"launches over the six legs (K4, K8: the kernel phase's): {launches}")
     print("rates: " + json.dumps(rates))
     kernels = [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],

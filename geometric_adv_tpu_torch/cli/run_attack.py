@@ -4,8 +4,11 @@ reference: attacker/run_attack.py).
 Per source class: assemble the source/target pair grid, run the attack over
 all dist weights, save the per-class artifacts (adversarial_metrics /
 _pc_input / _pc_recon / dist_weight). The victim's ``conf.loss`` (chamfer or
-EMD) selects the attack's losses. Flags keep the JAX stage's names; a value
-that selects work the port does not have yet raises."""
+EMD) selects the attack's losses. ``--chamfer_impl fused|composed`` forces
+the chamfer route (else the runner calibrates on the card) and
+``--chamfer_refresh N`` runs the frozen-assignment mode; the runner's
+routing is written to ``attack_impl.json``. Flags keep the JAX stage's
+names; a value that selects work the port does not have yet raises."""
 
 import argparse
 import json
@@ -14,7 +17,7 @@ import os.path as osp
 import numpy as np
 import torch
 
-from geometric_adv_tpu_torch.attack.core import AttackRunner
+from geometric_adv_tpu_torch.attack.core import AttackRunner, _auto_dispatch_batch
 from geometric_adv_tpu_torch.cli.common import (
     NN_IDX_DICT,
     AttackContext,
@@ -28,10 +31,6 @@ from geometric_adv_tpu_torch.utils.artifacts import load_data
 
 def _reject_unported(flags, device) -> None:
     unported = {
-        "--chamfer_impl fused (kernel K5, ROADMAP Queue 2)":
-            flags.chamfer_impl == "fused",
-        "--chamfer_refresh > 0 (ROADMAP Queue 1 item 9)":
-            flags.chamfer_refresh > 0,
         "--encoder_vjp sparse (ROADMAP Queue 1 item 16)":
             flags.encoder_vjp == "sparse",
         "--trace_dir (device traces)": flags.trace_dir is not None,
@@ -58,7 +57,8 @@ def main(argv=None):
     parser.add_argument("--num_iterations_thresh", type=int, default=400)
     parser.add_argument(
         "--batch_size", type=int, default=0,
-        help="pairs per attack call; 0 = sized from the point count",
+        help="pairs per attack call; 0 = sized from the point count, "
+        "at most the largest class's pair grid",
     )
     parser.add_argument("--ae_folder", type=str, default="log/autoencoder_victim")
     parser.add_argument("--restore_epoch", type=int, default=None)
@@ -74,9 +74,18 @@ def main(argv=None):
     parser.add_argument("--project_dir", type=str, default=".")
     parser.add_argument("--use_mesh", type=int, default=1)
     parser.add_argument("--matmul_precision", type=str, default=None)
-    parser.add_argument("--chamfer_impl", type=str, default="auto",
-                        choices=["auto", "fused", "composed"])
-    parser.add_argument("--chamfer_refresh", type=int, default=0)
+    parser.add_argument(
+        "--chamfer_impl", type=str, default="auto",
+        choices=["auto", "fused", "composed"],
+        help="the chamfer route: the fused loss (K5) or composed (K1 + K3); "
+        "'auto' measures both once on the card and takes the faster",
+    )
+    parser.add_argument(
+        "--chamfer_refresh", type=int, default=0,
+        help="frozen-assignment mode: recompute both attack chamfers' "
+        "nearest-neighbour assignments every N iterations and hold them "
+        "frozen in between (PARITY.md #13); 0 = exact every iteration",
+    )
     parser.add_argument("--encoder_vjp", type=str, default="auto",
                         choices=["auto", "sparse", "dense"])
     parser.add_argument("--trace_dir", type=str, default=None)
@@ -87,6 +96,8 @@ def main(argv=None):
     _reject_unported(flags, device)
     if flags.num_iterations_thresh > flags.num_iterations:
         raise ValueError("--num_iterations_thresh exceeds --num_iterations")
+    if flags.chamfer_refresh < 0:
+        raise ValueError("--chamfer_refresh must be >= 0")
 
     ctx = AttackContext(
         flags.project_dir, flags.ae_folder,
@@ -126,15 +137,27 @@ def main(argv=None):
     if conf.correct_pred_only and ctx.correct_pred is None:
         ctx.load_correct_pred()
 
+    # pairs per attack call: the flag, else sized from the point count and
+    # capped by the largest class's pair grid, so that the runner's
+    # calibration measures the batch the attack sends
+    batch_size = flags.batch_size or _auto_dispatch_batch(
+        conf.n_input[0],
+        max((ctx.class_attack_data(name, ctx.ae_loss)[1].size
+             for _, name in ctx.classes_iter()), default=1),
+    )
     victim = restore_victim(conf, ctx.ae_dir, device, flags.restore_epoch)
-    runner = AttackRunner(victim.model, conf, device)
+    runner = AttackRunner(victim.model, conf, device,
+                          chamfer_impl=flags.chamfer_impl, batch_size=batch_size)
+    print(f"attack routing: {runner.attack_mode}")
     with open(osp.join(output_path, "attack_impl.json"), "w") as f:
         json.dump(
             {
                 "chamfer_impl_flag": flags.chamfer_impl,
-                "chamfer_method": "composed",
-                "chamfer_refresh": 0,
-                "attack_mode": "composed",
+                "chamfer_method": runner.chamfer_method,
+                "chamfer_refresh": runner.chamfer_refresh,
+                "attack_mode": runner.attack_mode,
+                "batch_size": batch_size,
+                "calibration_seconds": runner.calibration_seconds,
                 "encoder_vjp": "dense",
                 "device": str(device),
             },
@@ -162,7 +185,7 @@ def main(argv=None):
             fout.write(f"Attack flags: {flags}\n")
             out = runner.attack(
                 source_pc, target_latent, target_pc, target_ae_loss_ref,
-                batch_size=flags.batch_size or None, log_file=fout,
+                log_file=fout,
             )
 
         np.save(osp.join(save_dir, "adversarial_metrics"), out.metrics)

@@ -13,12 +13,14 @@
 // The caller swaps the two clouds for the second direction, as the
 // reference's tf_nndistance_g.cu does.
 //
-// Numerics: each distance is ((dx*dx) + (dy*dy)) + (dz*dz) in round-to-
-// nearest f32, written with __fsub_rn/__fmul_rn/__fadd_rn so that nvcc can
-// not contract it into FMAs. The plain PyTorch version
-// (geometric_adv_tpu_torch/ops/chamfer.py::pairwise_sqdist) evaluates the
-// same expression in the same order, so the minima are bit-equal and the
-// argmin ties resolve identically.
+// Numerics: each distance is gat_sq_dist (sqdist.cuh), ((dx*dx) + (dy*dy))
+// + (dz*dz) in round-to-nearest f32 with no FMA contraction. The plain
+// PyTorch version (geometric_adv_tpu_torch/ops/chamfer.py::pairwise_sqdist)
+// evaluates the same expression in the same order, so the minima are
+// bit-equal and the argmin ties resolve identically.
+//
+// gat_nn_distance is also the first launch of K5 (chamfer_payloads.cu),
+// which takes its column direction from it.
 //
 // What bounds it on Hopper: n*m distance evaluations per direction, about ten
 // f32 ALU instructions each, against 12 bytes read per staged point. Every
@@ -39,6 +41,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "sqdist.cuh"
 
 namespace {
 
@@ -79,11 +83,7 @@ nn_kernel(const float* __restrict__ query, const float* __restrict__ other,
 #pragma unroll 8
       for (int j = 0; j < count; ++j) {
         const float4 p = tile[j];
-        const float dx = __fsub_rn(qx, p.x);
-        const float dy = __fsub_rn(qy, p.y);
-        const float dz = __fsub_rn(qz, p.z);
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                  __fmul_rn(dz, dz));
+        const float d = gat_sq_dist(qx, qy, qz, p.x, p.y, p.z);
         if (d < best) {
           best = d;
           if (kWithIndex) best_j = base + j;

@@ -1,19 +1,23 @@
 """Build, load and bind the hand-written CUDA kernels (``csrc/*.cu``).
 
-Every source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` the
-first time a kernel wrapper is called: one ``nvcc -c`` per source, all
-started together, then one link into a single shared library with a plain C
-interface, in ``build/kernels/`` at the repository root. The library's name
-carries a hash of the sources and the flags, so a changed source builds a new
-library and an unchanged one is reused. Nothing is compiled when this module
-is imported.
+Every ``*.cu`` source under ``csrc/`` is compiled with ``nvcc`` for
+``sm_90a`` the first time a kernel wrapper is called: one ``nvcc -c`` per
+source, all started together, then one link into a single shared library
+with a plain C interface, in ``build/kernels/`` at the repository root. The
+library's name carries a hash of every file under ``csrc/`` (the shared
+headers such as ``sqdist.cuh`` included) and of the flags, so a changed
+source or header builds a new library and an unchanged tree reuses it.
+Nothing is compiled when this module is imported.
 
-The wrapper modules (``ops/cuda/chamfer.py``, ``ops/cuda/emd.py``) share the
-checks here: each wrapper checks device, dtype, shape and contiguity and
-raises on anything else, allocates its outputs with ``torch.empty``, launches
-on the current CUDA stream without synchronising, raises if a launch was
-refused, and counts its launches. There is no fallback: a CPU tensor, a
-failed build or a refused launch raises.
+The wrapper modules share the checks here: ``ops/cuda/chamfer.py`` (K1 K2
+``nn_distance[_values]_cuda``, K3 ``chamfer_grad1_cuda``, K4
+``chamfer_grad1_vpu_cuda``, K5 ``chamfer_loss_payloads_cuda``, K8
+``nn_direction_hier_cuda``) and ``ops/cuda/emd.py`` (K6, K7). Each wrapper
+checks device, dtype, shape and contiguity and raises on anything else,
+allocates its outputs with ``torch.empty``, launches on the current CUDA
+stream without synchronising, raises if a launch was refused, and counts its
+launches. There is no fallback: a CPU tensor, a failed build or a refused
+launch raises.
 """
 
 from __future__ import annotations
@@ -43,6 +47,10 @@ SIGNATURES = {
     "gat_nn_distance": [_p, _p, _p, _p, _i, _i, _i, _p],
     "gat_nn_distance_values": [_p, _p, _p, _i, _i, _i, _p],
     "gat_chamfer_grad1": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+    "gat_chamfer_grad1_vpu": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+    "gat_chamfer_loss_payloads": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
+                                  _p],
+    "gat_nn_direction_hier": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "gat_emd_sweep_block": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _f, _fp, _i, _p],
     "gat_emd_sweep_tiled": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _f, _f,
                             _fp, _i, _p],
@@ -73,8 +81,8 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
-        h.update(src.name.encode())
+    for src in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(src.relative_to(CSRC).as_posix().encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libgat_kernels_{h.hexdigest()[:16]}.so"

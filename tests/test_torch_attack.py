@@ -102,14 +102,15 @@ def test_attack_runner_batches_and_matches_single_call():
 
 
 def test_runner_rejects_unported_modes():
-    """chamfer_refresh > 0 still raises; an EMD victim's runner builds and
-    runs, its metrics finite and its T-RE the victim's EMD."""
+    """An unknown loss raises, and so does chamfer_refresh with an EMD
+    victim; an EMD victim's runner builds and runs, its metrics finite and
+    its T-RE the victim's EMD."""
     from geometric_adv_tpu_torch.ops.emd import emd_loss_fused
     from geometric_adv_tpu_torch.train.config import Configuration
 
     _, _, model = tiny_victims()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        core.AttackRunner(model, Configuration(chamfer_refresh=5), "cpu")
+    with pytest.raises(ValueError, match="requires the chamfer AE loss"):
+        core.AttackRunner(model, Configuration(loss="emd", chamfer_refresh=5), "cpu")
     with pytest.raises(ValueError, match="unknown ae loss"):
         core.AttackRunner(model, Configuration(loss="hausdorff"), "cpu")
     conf = Configuration(loss="emd", n_input=[32, 3], num_iterations=4,
@@ -153,8 +154,6 @@ def test_init_pert_is_seeded_truncated_normal():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--chamfer_impl", "fused"],
-    ["--chamfer_refresh", "5"],
     ["--encoder_vjp", "sparse"],
     ["--trace_dir", "trace"],
     ["--matmul_precision", "bfloat16"],

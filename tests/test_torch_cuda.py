@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels against their plain PyTorch versions, on the
-card. Skipped where ``torch.cuda.is_available()`` is false.
+"""The hand-written CUDA kernels (K1-K8) against their plain PyTorch
+versions, on the card. Skipped where ``torch.cuda.is_available()`` is false.
 
 This file imports no JAX, so it also runs on a machine without it:
 
@@ -67,14 +67,134 @@ def test_autograd_on_card_goes_through_the_kernels(cuda):
     a, c = tie_clouds(2, 100, 90, seed=1)
     ta = a.to(cuda).requires_grad_(True)
     cu.reset_launch_counts()
-    ch.chamfer_loss_per_pc(ta, c.to(cuda)).sum().backward()
+    # the composed route (at n <= 1024 "auto" takes the fused loss, K5)
+    ch.chamfer_loss_per_pc(ta, c.to(cuda), method="composed").sum().backward()
     torch.cuda.synchronize()
     assert cu.launch_counts() == {"nn_distance_cuda": 2,
                                   "nn_distance_values_cuda": 0,
-                                  "chamfer_grad1_cuda": 1}
+                                  "chamfer_grad1_cuda": 1,
+                                  "chamfer_grad1_vpu_cuda": 0,
+                                  "chamfer_loss_payloads_cuda": 0,
+                                  "nn_direction_hier_cuda": 0}
     ha = a.clone().requires_grad_(True)
-    ch.chamfer_loss_per_pc(ha, c).sum().backward()
+    ch.chamfer_loss_per_pc(ha, c, method="composed").sum().backward()
     assert (ta.grad.cpu() - ha.grad).abs().max().item() <= GRAD_TOL
+
+
+def unit_clouds(b, n, m, seed):
+    """Uniform clouds with exact ties, the attack's scale: K4's algebra
+    cancels x1 * cnt - sc, whose rounding grows with |x1| * cnt."""
+    a, c = tie_clouds(b, n, m, seed)
+    return a.abs() % 1.0, c.abs() % 1.0
+
+
+@pytest.mark.parametrize("b,n,m", [(3, 37, 300), (2, 256, 256), (4, 257, 1000),
+                                   (1, 1, 5), (2, 600, 20), (4, 2048, 2048),
+                                   (2, 1100, 300)])
+def test_k4_k5_k8_match_plain_versions(cuda, b, n, m):
+    from geometric_adv_tpu_torch.ops import chamfer_hier as hier
+
+    a, c = (t.to(cuda) for t in unit_clouds(b, n, m, seed=n + m))
+    k1 = cu.nn_distance_cuda(a, c)
+    got = cu.chamfer_loss_payloads_cuda(a, c)
+    want = ch.chamfer_loss_payloads_plain(a, c)
+    for k in range(4):
+        assert torch.equal(got[k], want[k]) and torch.equal(got[k], k1[k])
+    assert torch.equal(got[4], ch._take_points(c, got[1]))
+    assert (got[5] - want[5]).abs().max().item() <= 1e-5
+    assert torch.equal(got[6], want[6])
+
+    gen = torch.Generator().manual_seed(b)
+    g1 = torch.rand(b, n, generator=gen).to(cuda)
+    g2 = torch.rand(b, m, generator=gen).to(cuda)
+    grad_args = (a, c, k1[1], k1[3], g1, g2)
+    k4 = cu.chamfer_grad1_vpu_cuda(*grad_args)
+    k3 = cu.chamfer_grad1_cuda(*grad_args)
+    # the plain version on the host sums the scatter terms in ascending j,
+    # as K4 does; on the card its atomic scatter sums in another order, and
+    # the x1 * cnt - sc cancellation turns that into up to ~3e-6 at n << m
+    p4 = ch.chamfer_grad1_vpu_plain(*(t.cpu() for t in grad_args))
+    assert (k4.cpu() - p4).abs().max().item() <= GRAD_TOL
+    assert (k4 - k3).abs().max().item() <= GRAD_TOL
+
+    cu.reset_launch_counts()
+    for g, w in zip(hier.nn_distance_hier(a, c), k1):
+        assert torch.equal(g, w)
+    assert cu.launch_counts()["nn_direction_hier_cuda"] == 2
+    xs, _, _ = hier._prep(a)
+    ys, perm, cyr = hier._prep(c)
+    args = (xs, hier.seed_upper_bounds(xs, cyr), ys, perm, cyr)
+    kd, ki = cu.nn_direction_hier_cuda(*args)
+    pd, pi = hier.nn_direction_hier_plain(*args)
+    assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    vd, vi = cu.nn_direction_hier_cuda(*args, with_idx=False)
+    assert vi is None and torch.equal(vd, kd)
+
+
+def test_fused_loss_on_card_goes_through_k5(cuda):
+    a, c = unit_clouds(2, 100, 90, seed=7)
+    ta = a.to(cuda).requires_grad_(True)
+    tc = c.to(cuda).requires_grad_(True)
+    cu.reset_launch_counts()
+    ch.chamfer_loss_per_pc(ta, tc, method="fused").sum().backward()
+    with torch.no_grad():
+        ch.chamfer_loss_per_pc(ta, tc, method="fused")
+    torch.cuda.synchronize()
+    counts = cu.launch_counts()
+    assert counts["chamfer_loss_payloads_cuda"] == 1
+    assert counts["nn_distance_cuda"] == 0
+    assert counts["chamfer_grad1_cuda"] == 1  # the second cloud's gradient
+    assert counts["nn_distance_values_cuda"] == 2  # the no-grad call (K2)
+    ha, hc = a.clone().requires_grad_(True), c.clone().requires_grad_(True)
+    ch.chamfer_loss_per_pc(ha, hc, method="fused").sum().backward()
+    assert (ta.grad.cpu() - ha.grad).abs().max().item() <= GRAD_TOL
+    assert (tc.grad.cpu() - hc.grad).abs().max().item() <= GRAD_TOL
+    cu.reset_launch_counts()
+    small = a.to(cuda).requires_grad_(True)
+    ch.chamfer_loss_per_pc(small, c.to(cuda)).sum().backward()  # auto, n <= 1024
+    assert cu.launch_counts()["chamfer_loss_payloads_cuda"] == 1
+
+
+def test_frozen_attack_on_card_goes_through_k5_past_2048_points(cuda):
+    """The frozen payloads take K5 at any n (the fused loss's n <= 2048 gate
+    is routing, not a limit of K5): a frozen attack at 2100 points launches
+    K5 on the refresh schedule and K1, K2, K3 never, and agrees with the same
+    attack on the host."""
+    from geometric_adv_tpu_torch.attack.core import attack_batch
+
+    a, c = unit_clouds(2, 2100, 2100, seed=11)
+    x1, x2 = a.to(cuda), c.to(cuda)
+    cu.reset_launch_counts()
+    got = ch.chamfer_frozen_payloads(x1, x2)
+    assert cu.launch_counts()["chamfer_loss_payloads_cuda"] == 1
+    want = ch.chamfer_frozen_payloads(a, c)
+    for k, (g, w) in enumerate(zip(got, want)):
+        if k == 3:  # snn1
+            assert (g.cpu() - w).abs().max().item() <= 1e-5
+        else:
+            assert torch.equal(g.cpu(), w)
+
+    def encode(x):  # a stand-in victim: the cloud is its own latent
+        return x
+
+    def decode(z):
+        return 0.9 * z
+
+    outs = {}
+    for name, dev in (("card", cuda), ("host", torch.device("cpu"))):
+        x, gt = (t.to(dev) for t in (a, c))
+        cu.reset_launch_counts()
+        outs[name] = attack_batch(
+            encode, decode, x, x.mean(dim=1), gt, torch.ones(2, device=dev), [1.0],
+            num_iterations=5, num_iterations_thresh=1, chamfer_refresh=2)
+        if name == "card":
+            counts = cu.launch_counts()
+    # steps 0..5 in chunks of 2: three refreshes of two chamfers
+    assert counts["chamfer_loss_payloads_cuda"] == 6
+    assert counts["nn_distance_cuda"] == counts["nn_distance_values_cuda"] == 0
+    assert counts["chamfer_grad1_cuda"] == 0
+    np.testing.assert_allclose(outs["card"].metrics, outs["host"].metrics,
+                               rtol=1e-3, atol=1e-5)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -94,6 +214,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         cu.chamfer_grad1_cuda(a, c, i1.long(), i2, g1, g2)
     with pytest.raises(ValueError):
         cu.chamfer_grad1_cuda(a, c, i1, i2, g1.t().contiguous().t(), g2)
+    with pytest.raises(TypeError):
+        cu.chamfer_grad1_vpu_cuda(a, c, i1, i2.long(), g1, g2)
+    with pytest.raises(ValueError):
+        cu.chamfer_loss_payloads_cuda(a, c.cpu())
+    cyr = torch.zeros(2, 1, 4, device=cuda)
+    with pytest.raises(ValueError):
+        cu.nn_direction_hier_cuda(a, g1, c, i2, cyr[:, :, :3].contiguous())
 
 
 def emd_clouds(b, n, m, seed):

@@ -5,7 +5,8 @@ their originals in the JAX package.
    the JAX package itself cannot be imported, every module of
    ``geometric_adv_tpu_torch`` imports and the tiny slice runs through the
    stage CLIs on ``--device cpu``, from ``train_ae --loss emd`` on — as on a
-   machine that has no JAX.
+   machine that has no JAX; so do a frozen-assignment attack and the
+   pruned chamfer of ``ops/chamfer_hier.py``.
 2. The copies (``attack/pipeline.py``, ``train/config.py`` and the data /
    augmentation / artifact helpers) give the originals' results on the same
    inputs.
@@ -31,7 +32,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 for name in ("cli.run_attack", "cli.train_ae", "ops.emd", "ops.cuda.emd",
-             "ops.cuda.build", "train.trainer"):
+             "ops.cuda.build", "ops.chamfer_hier", "train.trainer"):
     assert "geometric_adv_tpu_torch." + name in names, names
 
 import numpy as np
@@ -59,6 +60,22 @@ evaluate_attack.main(["--project_dir", d, "--ae_folder", ae,
                       "--attack_pc_idx", sel])
 m = np.load(d + "/" + ae + "/eval/attack_res/sphere/adversarial_metrics.npy")
 assert m.shape == (1, 8, 5) and np.isfinite(m).all(), m
+
+import torch
+from geometric_adv_tpu_torch.attack.core import attack_batch
+from geometric_adv_tpu_torch.models.pointnet_ae import PointNetAE
+from geometric_adv_tpu_torch.ops.chamfer import nn_distance
+from geometric_adv_tpu_torch.ops.chamfer_hier import nn_distance_hier
+torch.manual_seed(0)
+net = PointNetAE(n_points=32, bneck_size=8, encoder_filters=[16, 8],
+                 decoder_sizes=[16, 16]).eval().requires_grad_(False)
+x, gt = torch.rand(2, 32, 3), torch.rand(2, 32, 3)
+out = attack_batch(net.encode, net.decode, x, net.encode(gt), gt, torch.ones(2),
+                   [1.0], num_iterations=6, num_iterations_thresh=2,
+                   chamfer_refresh=3)
+assert np.isfinite(out.metrics).all(), out.metrics
+for a, b in zip(nn_distance_hier(x, gt), nn_distance(x, gt)):
+    assert torch.equal(a, b)
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in
                 ("jax", "flax", "optax", "orbax", "geometric_adv_tpu"))
