@@ -13,14 +13,23 @@ the script exits non-zero:
 2. build every hand-written CUDA kernel from ``geometric_adv_tpu_torch/csrc``
    (one ``nvcc -c`` per source, all at once, then one link);
 3. kernel phase: each kernel's wrapper against its plain PyTorch version on
-   the card at the main path's shapes, both timed (CUDA events):
+   the card at the main path's shapes, both timed (CUDA events), each time
+   beside its bound (``kernel_bound``):
+   - K1, K2 and K5 at [24, 2048^2] (the attack's call), [64, 2048^2] and
+     [250, 2048^2] (the reference batch), K2 also at [512, 2048^2] (the
+     chamfer matrix's block), on clouds whose exact ties straddle K1's
+     tile, block, step and chunk boundaries: K1 and K2 bit-equal to their
+     plain versions with every tie at its first index, K5's d/i bit-equal
+     to K1's, nn1 = x2[i1], snn1 and cnt1 bit-equal to the host's
+     ascending-j sums, every second run bit-equal to the first;
    - K1/K2/K3/K4 at [64, 2048, 3] clouds and a ragged 2000 x 2048 case,
      with exact ties: K1 and K2 values bit-equal and K1 indices equal, K3
      within 2.6e-6, K4 within 2.6e-6 of its plain version and of K3;
    - K5 at [64, 2048^2], [64, 1024^2] and the ragged [16, 2000 x 2048],
      [8, 1100 x 300], [8, 2500 x 2048]: d1 i1 d2 i2 bit-equal to K1 and the
-     plain version, nn1 = x2[i1], cnt1 equal, snn1 within 1e-5; the frozen
-     attack's payload op launches K5 at every shape, past 2048 points too;
+     plain version, nn1 = x2[i1], cnt1 equal, snn1 bit-equal to the host's
+     ascending-j sum; the frozen attack's payload op launches K5 at every
+     shape, past 2048 points too;
    - K8 (``nn_distance_hier``) on tie clouds and on the synthetic dataset's
      surface clouds at [64, 2048^2]: values bit-equal to K1, indices equal;
      timed beside K1;
@@ -60,8 +69,10 @@ the script exits non-zero:
    the chamfer matrix's pair-evaluations/s, and the peak device memory of
    each leg.
 
-Its last lines are a JSON record of the kernels, the card as nvidia-smi
-reports it, and ``{"ok": true, "device": {...}}``. It writes only under
+Its last lines are a JSON record of the kernels (each with its shape, its
+time, the plain version's, its bound and what sets it, and its launches over
+the legs), the card as nvidia-smi reports it, and
+``{"ok": true, "device": {...}}``. It writes only under
 ``build/`` in the checkout.
 """
 
@@ -86,6 +97,11 @@ SNN_TOL = 1e-5  # K5's scatter sum (geometric_adv_tpu/cli/verify_tpu.py:409-416)
 EMD_COST_RTOL = 1e-5  # geometric_adv_tpu/cli/verify_tpu.py:482
 EMD_GRAD_REL = 1e-4
 EMD_ITERS = (100, 80)  # the EMD leg's attack, cut from the reference 500/400
+FORWARD_BATCHES = (24, 64, 250, 512)  # the attack's call, the kernel table's
+# shape, the reference batch; 512, the chamfer matrix's block (K2 only)
+RECORD_BATCH = 64  # the batch of the JSON line's K1-K5 records (the kernel table's)
+# published peaks of one H100 SXM (NVIDIA's H100 datasheet), for bounds
+FP32_PEAK, FP64_PEAK, HBM_RATE = 67e12, 34e12, 3.35e12
 CSRC = "geometric_adv_tpu_torch/csrc/"
 PALLAS = "geometric_adv_tpu/ops/pallas/"
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
@@ -123,19 +139,77 @@ def sync_timed(fn, reps: int) -> float:
 
 def tie_clouds(b, n, m, seed):
     """Seeded uniform clouds with exact ties: a duplicated point in each
-    cloud and a query point that coincides with a point of the other."""
+    cloud and a query point that coincides with a point of the other; at
+    2048 points and more, ties that straddle K1's boundaries
+    (tests/test_torch_ops_chamfer_ties.py): rows 3 and 1500 (other tiles
+    and blocks) on column 7, columns 5 and 1800 (other steps) on row 40,
+    rows 255/256 (a tile boundary) on column 300, columns 255/256 (a step
+    boundary) on row 600, past 2048 rows also row 2100 on column 7."""
     rng = np.random.RandomState(seed)
     x1 = rng.rand(b, n, 3).astype(np.float32)
     x2 = rng.rand(b, m, 3).astype(np.float32)
     x2[:, 5] = x2[:, 17]
-    x1[:, 9] = x1[:, 40]
+    x1[:, 9] = x1[:, 41]
     x1[:, 3] = x2[:, 7]
+    if n >= 2048 and m >= 2048:
+        x1[:, 1500] = x2[:, 7]
+        x2[:, 1800] = x2[:, 5]
+        x1[:, 40] = x2[:, 5]
+        x1[:, 255] = x1[:, 256] = x2[:, 300]
+        x2[:, 256] = x2[:, 255]
+        x1[:, 600] = x2[:, 255]
+        if n > 2100:
+            x1[:, 2100] = x2[:, 7]
     return torch.from_numpy(x1).cuda(), torch.from_numpy(x2).cuda()
+
+
+def check_straddling_ties(k1, shape):
+    """K1's argmins at the ties tie_clouds plants at 2048 points."""
+    d1, i1, d2, i2 = k1
+    want = ((i2[:, 7], 3), (i1[:, 40], 5), (i2[:, 300], 255), (i1[:, 600], 255),
+            (i1[:, 3], 7))
+    if not all(bool((got == w).all()) for got, w in want):
+        fail(f"K1 missed a straddling tie's first index at {shape}")
+    if not (bool((d2[:, 7] == 0).all()) and bool((d1[:, 600] == 0).all())):
+        fail(f"K1's straddling ties are not at distance 0 at {shape}")
+
+
+def kernel_bound(name, b, n, m, pairs=None):
+    """(bound_ms, bound_by, the operations' type) of one call at [b, n, 3] x
+    [b, m, 3]: the larger of the operations over the card's peak for their
+    type and the bytes over its memory rate, each input read once and each
+    output written once. Operations per distance pair: 8 FP32 for the
+    distance (3 sub, 3 mul, 2 add) and a minimum per direction (K1, K2, K5;
+    one direction on the ``pairs`` K8's pruning needs); per pair and level
+    of the EMD sweep (g1 mode), 27 FP32 (the distance, the kernel value, the
+    row, column and cost products and sums, the g1 terms) and 6 FP64 (its
+    three float64 sums, product and add); K3/K4 are O(n + m)."""
+    levels = 10
+    cloud = b * (n + m) * 12
+    fp32 = fp64 = 0.0
+    if name in ("nn_distance_cuda", "nn_distance_values_cuda", "chamfer_loss_payloads_cuda"):
+        fp32 = 10.0 * b * n * m
+        out = {"nn_distance_cuda": 8 * (n + m), "nn_distance_values_cuda": 4 * (n + m),
+               "chamfer_loss_payloads_cuda": 8 * (n + m) + 28 * n}[name]
+        nbytes = cloud + b * out
+    elif name in ("chamfer_grad1_cuda", "chamfer_grad1_vpu_cuda"):
+        fp32 = 20.0 * b * (n + m)
+        nbytes = cloud + b * (8 * (n + m) + 12 * n)  # idx, g in; grad out
+    elif name == "nn_direction_hier_cuda":
+        fp32 = 9.0 * pairs
+        nbytes = cloud + b * (4 * n + 4 * m + 16 * -(-m // 128) + 8 * n)
+    else:  # the EMD sweeps, g1 only
+        fp32, fp64 = 27.0 * levels * b * n * m, 6.0 * levels * b * n * m
+        nbytes = cloud + b * (4 + 12 * n)
+    times = {"FP32": fp32 / FP32_PEAK, "FP64": fp64 / FP64_PEAK, "bytes": nbytes / HBM_RATE}
+    kind = max(times, key=times.get)
+    return times[kind] * 1e3, "bytes" if kind == "bytes" else "operations", kind
 
 
 def chamfer_kernel_phase(cu, ch):
     """K1/K2/K3/K4 against their plain versions, K4 also against K3;
-    returns the kernel records."""
+    returns the records of K3 and K4 (K1 and K2 are timed in
+    forward_kernel_phase)."""
     records = {}
     for b, n, m in ((64, N_POINTS, N_POINTS), (16, 2000, N_POINTS)):
         x1, x2 = tie_clouds(b, n, m, seed=n)
@@ -175,19 +249,7 @@ def chamfer_kernel_phase(cu, ch):
         if not (k4_err <= GRAD_TOL and k4_k3 <= GRAD_TOL):
             fail(f"K4 differs from its plain version or K3 at {shape}")
         if n == m:  # time at the main-path shape
-            k1_err = max((d1 - r1).abs().max().item(), (d2 - r2).abs().max().item())
-            k2_err = max((v1 - r1).abs().max().item(), (v2 - r2).abs().max().item())
             timings = {
-                "nn_distance_cuda": (
-                    k1_err,
-                    sync_timed(lambda: cu.nn_distance_cuda(x1, x2), 20),
-                    sync_timed(lambda: ch.nn_distance_plain(x1, x2), 5),
-                ),
-                "nn_distance_values_cuda": (
-                    k2_err,
-                    sync_timed(lambda: cu.nn_distance_values_cuda(x1, x2), 20),
-                    sync_timed(lambda: ch.nn_distance_values_plain(x1, x2), 5),
-                ),
                 "chamfer_grad1_cuda": (
                     k3_err,
                     sync_timed(lambda: cu.chamfer_grad1_cuda(
@@ -204,7 +266,8 @@ def chamfer_kernel_phase(cu, ch):
                 ),
             }
             for name, (err, ms, plain_ms) in timings.items():
-                records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bnm": (b, n, m)}
                 print(f"  {name} at {shape}: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms")
         del x1, x2, d1, i1, d2, i2, r1, j1, r2, j2, v1, v2, k3, p3, k4, p4, p4_card
@@ -212,13 +275,86 @@ def chamfer_kernel_phase(cu, ch):
     return records
 
 
+def forward_kernel_phase(cu, ch):
+    """K1, K2 and K5 on tie clouds of 2048 points at FORWARD_BATCHES, with
+    ties straddling K1's tile, block, step and chunk boundaries: K1 and K2
+    bit-equal to their plain versions (at 512 clouds, where the plain
+    version's [b, n, m, 3] plane would take 51 GB, K2 bit-equal to K1's
+    distances), K5's d/i bit-equal to K1's, nn1 = x2[i1], cnt1 equal and
+    snn1 bit-equal to the plain version on the host (ascending j, as K5
+    sums) on two of the clouds, every kernel's second run bit-equal to its
+    first; each timed (CUDA events, 20 calls; the plain versions, 3 calls,
+    at RECORD_BATCH). Returns the records at RECORD_BATCH, each with its
+    times at every batch."""
+    names = ("nn_distance_cuda", "nn_distance_values_cuda", "chamfer_loss_payloads_cuda")
+    records = {name: {"shapes_ms": {}} for name in names}
+    n = N_POINTS
+    for b in FORWARD_BATCHES:
+        x1, x2 = tie_clouds(b, n, n, seed=b)
+        shape = f"[{b},{n},3]^2"
+        calls = {"nn_distance_cuda": lambda: cu.nn_distance_cuda(x1, x2),
+                 "nn_distance_values_cuda": lambda: cu.nn_distance_values_cuda(x1, x2),
+                 "chamfer_loss_payloads_cuda": lambda: cu.chamfer_loss_payloads_cuda(x1, x2)}
+        if b == 512:  # K2 alone: the matrix's block
+            del calls["chamfer_loss_payloads_cuda"]
+        outs = {name: fn() for name, fn in calls.items()}
+        k1, k2 = outs["nn_distance_cuda"], outs["nn_distance_values_cuda"]
+        want = ch.nn_distance_plain(x1, x2) if b < 512 else k1
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(k1, want)):
+            fail(f"K1 differs from its plain version at {shape}")
+        check_straddling_ties(k1, shape)
+        if not (torch.equal(k2[0], want[0]) and torch.equal(k2[1], want[2])):
+            fail(f"K2 differs from the plain version (at 512 clouds K1) at {shape}")
+        errs = {"nn_distance_cuda": 0.0, "nn_distance_values_cuda": 0.0}
+        if "chamfer_loss_payloads_cuda" in outs:
+            k5 = outs["chamfer_loss_payloads_cuda"]
+            host = ch.chamfer_loss_payloads_plain(x1[:2].cpu(), x2[:2].cpu())
+            if not all(torch.equal(k5[k], k1[k]) for k in range(4)):
+                fail(f"K5's d1 i1 d2 i2 differ from K1's at {shape}")
+            if not torch.equal(k5[4], ch._take_points(x2, k1[1])):
+                fail(f"K5 nn1 is not x2[i1] at {shape}")
+            if not (torch.equal(k5[5][:2].cpu(), host[5])
+                    and torch.equal(k5[6][:2].cpu(), host[6])):
+                fail(f"K5 snn1 or cnt1 differ from the host's ascending-j sums at {shape}")
+            errs["chamfer_loss_payloads_cuda"] = (k5[5][:2].cpu() - host[5]).abs().max().item()
+        for name, fn in calls.items():
+            again = fn()
+            torch.cuda.synchronize()
+            if not all(torch.equal(f, g) for f, g in zip(outs[name], again)):
+                fail(f"{name}'s second run differs from its first at {shape}")
+        times = {name: sync_timed(fn, 20) for name, fn in calls.items()}
+        for name, ms in times.items():
+            records[name]["shapes_ms"][shape] = ms
+            bound_ms = kernel_bound(name, b, n, n)[0]
+            print(f"  {name} at {shape}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({100 * bound_ms / ms:.1f}%)")
+        if b == RECORD_BATCH:
+            plains = {"nn_distance_cuda": lambda: ch.nn_distance_plain(x1, x2),
+                      "nn_distance_values_cuda": lambda: ch.nn_distance_values_plain(x1, x2),
+                      "chamfer_loss_payloads_cuda":
+                          lambda: ch.chamfer_loss_payloads_plain(x1, x2)}
+            for name in names:
+                records[name].update(max_abs_err=errs[name], ms=times[name],
+                                     plain_ms=sync_timed(plains[name], 3), bnm=(b, n, n))
+        k5_note = (", K5 d/i = K1, nn1 = x2[i1], snn1 and cnt1 bit-equal to the host"
+                   if b < 512 else "")
+        print(f"kernel check {shape}: K1 and K2 bit-equal to "
+              f"{'their plain versions' if b < 512 else 'each other'}, straddling ties at "
+              f"their first index{k5_note}; second runs bit-equal")
+        del x1, x2, k1, k2, want, outs, calls
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return records
+
+
 def payload_kernel_phase(cu, ch):
-    """K5 against K1, its plain version and the gather x2[i1], at the
-    attack's and the 1024-point trainer's shapes and three ragged ones, one
-    past the fused loss's 2048-point gate; the frozen attack's payload op
-    (``chamfer_frozen_payloads``) must launch K5 once at each shape."""
+    """K5 against K1, its plain version and the gather x2[i1], snn1 against
+    the host's ascending-j sum, at the attack's and the 1024-point trainer's
+    shapes and three ragged ones, one past the fused loss's 2048-point gate;
+    the frozen attack's payload op (``chamfer_frozen_payloads``) must launch
+    K5 once at each shape."""
     names = ("d1", "i1", "d2", "i2", "nn1", "snn1", "cnt1")
-    records = {}
     for b, n, m in ((64, N_POINTS, N_POINTS), (64, 1024, 1024), (16, 2000, N_POINTS),
                     (8, 1100, 300), (8, 2500, N_POINTS)):
         x1, x2 = tie_clouds(b, n, m, seed=n + m + 1)
@@ -240,23 +376,24 @@ def payload_kernel_phase(cu, ch):
             fail(f"K5 nn1 is not x2[i1] at {shape}")
         if not torch.equal(got[6], want[6]):
             fail(f"K5 cnt1 differs from the plain version at {shape}")
+        host = ch.chamfer_loss_payloads_plain(x1[:2].cpu(), x2[:2].cpu())
+        if not torch.equal(got[5][:2].cpu(), host[5]):
+            fail(f"K5 snn1 differs from the host's ascending-j sum at {shape}")
         snn_err = (got[5] - want[5]).abs().max().item()
         print(f"kernel check K5 {shape}: d1 i1 d2 i2 bit-equal to K1 and the plain "
-              f"version, nn1 = x2[i1], cnt1 equal, snn1 max abs err {snn_err:.3g} "
-              f"(tol {SNN_TOL}); the frozen payloads launched K5")
+              f"version, nn1 = x2[i1], cnt1 equal, snn1 bit-equal to the host's "
+              f"ascending-j sum (max abs err {snn_err:.3g} from the card's plain "
+              f"version, whose atomic scatter sums in another order; tol {SNN_TOL}); "
+              "the frozen payloads launched K5")
         if not snn_err <= SNN_TOL:
             fail(f"K5 snn1 differs from the plain version at {shape}")
-        if b == 64:
+        if b == 64 and n == 1024:
             ms = sync_timed(lambda: cu.chamfer_loss_payloads_cuda(x1, x2), 20)
             plain_ms = sync_timed(lambda: ch.chamfer_loss_payloads_plain(x1, x2), 5)
             print(f"  chamfer_loss_payloads_cuda at {shape}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms")
-            if n == N_POINTS:
-                records["chamfer_loss_payloads_cuda"] = {
-                    "max_abs_err": snn_err, "ms": ms, "plain_ms": plain_ms}
-        del x1, x2, got, want, k1, frozen
+        del x1, x2, got, want, k1, frozen, host
     torch.cuda.synchronize()
-    return records
 
 
 def surface_clouds(b, n, seed):
@@ -269,7 +406,7 @@ def surface_clouds(b, n, seed):
     ]).astype(np.float32)).cuda() for _ in range(2))
 
 
-def hier_kernel_phase(cu, hier):
+def hier_kernel_phase(cu, hier, ch):
     """K8: ``nn_distance_hier`` (K8 for both directions) bit-equal to K1,
     values and indices, on tie clouds and surface clouds; on the sorted
     surface clouds each direction against its plain version, timed beside
@@ -300,6 +437,9 @@ def hier_kernel_phase(cu, hier):
         err = max(err, (got[0] - want[0]).abs().max().item())
         if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
             fail("K8 differs from its plain version on the sorted surface clouds")
+    pairs = hier_needed_pairs(hier, ch, args[0][0], args[0][4],
+                              cu.nn_direction_hier_cuda(*args[0], with_idx=False)[0],
+                              y.shape[1])
     ms = sync_timed(lambda: cu.nn_direction_hier_cuda(*args[0]), 20)
     plain_ms = sync_timed(lambda: hier.nn_direction_hier_plain(*args[0]), 3)
     both_ms = sync_timed(lambda: [cu.nn_direction_hier_cuda(*a) for a in args], 20)
@@ -312,8 +452,28 @@ def hier_kernel_phase(cu, hier):
           f"ms; nn_distance_hier with its sorts {full_ms:.4f} ms (uniform tie "
           f"clouds {tie_ms:.4f} ms); K1 at the same shape {k1_ms:.4f} ms")
     torch.cuda.synchronize()
-    return {"nn_direction_hier_cuda": {"max_abs_err": err, "ms": ms,
-                                       "plain_ms": plain_ms}}
+    print(f"  K8's pruning leaves {pairs / (b * N_POINTS * N_POINTS):.3f} of the "
+          "direction's pairs, at the final distances (the bound's operations)")
+    return {"nn_direction_hier_cuda": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                       "bnm": (b, N_POINTS, N_POINTS), "pairs": pairs}}
+
+
+def hier_needed_pairs(hier, ch, x, cyr, d, m):
+    """Distance pairs K8's exact pruned search must evaluate on these
+    clouds: a block of sorted points is needed by a tile of NT queries where
+    some query's lower bound to its sphere (the kernel's formula) is at most
+    that query's final NN distance; each such (tile, block) costs NT x the
+    block's points."""
+    b, n, _ = x.shape
+    gap = torch.clamp(torch.sqrt(ch.pairwise_sqdist(x, cyr[..., :3])) - cyr[:, None, :, 3],
+                      min=0.0)
+    need = (gap * gap * hier._LB_MARGIN - hier._ABS_MARGIN) <= d[..., None]
+    tiles = -(-n // hier.NT)
+    need = torch.nn.functional.pad(need, (0, 0, 0, tiles * hier.NT - n))
+    need = need.reshape(b, tiles, hier.NT, -1).any(dim=2)
+    sizes = torch.tensor([min(hier.BS, m - j * hier.BS) for j in range(need.shape[-1])],
+                         device=x.device, dtype=torch.float64)
+    return float((need.double() * sizes).sum().item()) * hier.NT
 
 
 def sweep_errors(got, want):
@@ -372,7 +532,7 @@ def emd_kernel_phase(cu_emd, emd):
                 ms = sync_timed(lambda: fn(x, y, emd._LEVELS, True, False), 10)
                 plain_ms = sync_timed(lambda: emd.emd_sweep_plain(x, y, True, False), 3)
                 records[wrapper] = {"max_abs_err": worst[2], "ms": ms,
-                                    "plain_ms": plain_ms}
+                                    "plain_ms": plain_ms, "bnm": (b, n, m)}
                 print(f"  {wrapper} at {shape}, g1 only: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms")
         if len(outs) == 2:
@@ -651,7 +811,12 @@ def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20, **kw):
         return rate
     print(f"profile of 5 {label} iterations: device busy {busy_us / 1e3:.2f} ms of "
           f"{wall_us / 1e3:.2f} ms wall ({100 * busy_us / wall_us:.1f}%)")
-    for key, us, count in sorted(rows, key=lambda r: -r[1])[:8]:
+    ranked = sorted(rows, key=lambda r: -r[1])
+    # the eight largest, then the port's own kernels (csrc/, in anonymous
+    # namespaces) below them
+    own = [r for r in ranked[8:]
+           if r[0].removeprefix("void ").startswith("(anonymous namespace)::")]
+    for key, us, count in ranked[:8] + own:
         print(f"  {100 * us / busy_us:5.1f}%  {us / 1e3:8.3f} ms  x{count:<5d} "
               f"{key[:240]}")
     return rate
@@ -704,9 +869,10 @@ def main() -> int:
             print(f"  {ln.strip()}")
 
     cu.reset_launch_counts()
-    records = chamfer_kernel_phase(cu, ch)
-    records.update(payload_kernel_phase(cu, ch))
-    records.update(hier_kernel_phase(cu, hier))
+    records = forward_kernel_phase(cu, ch)
+    records.update(chamfer_kernel_phase(cu, ch))
+    payload_kernel_phase(cu, ch)
+    records.update(hier_kernel_phase(cu, hier, ch))
     # K4 and K8 are on no path of the package (as in the JAX package): their
     # launch counts are the kernel phase's
     phase_counts = cu.launch_counts()
@@ -870,11 +1036,18 @@ def main() -> int:
         launches[k] = phase_counts[k]
     print(f"launches over the six legs (K4, K8: the kernel phase's): {launches}")
     print("rates: " + json.dumps(rates))
-    kernels = [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name], **rec}
-        for name, rec in records.items()
-    ]
+    kernels = []
+    for name, rec in records.items():
+        b, n, m = rec.pop("bnm")
+        bound_ms, bound_by, kind = kernel_bound(name, b, n, m, rec.pop("pairs", None))
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNELS[name][0],
+            "replaces": KERNELS[name][1], "launches": launches[name],
+            "shape": f"[{b},{n},3]x[{b},{m},3]", "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_type": kind, "library_ms": None, **rec})
+        print(f"kernel {name} at [{b},{n},3]x[{b},{m},3]: {rec['ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({kind}), {100 * bound_ms / rec['ms']:.1f}% of the bound; "
+              f"{launches[name]} launches over the legs")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -44,8 +44,8 @@ _p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _fp = ctypes.POINTER(ctypes.c_float)
 # argtypes of every C entry point; all return a cudaError_t as int
 SIGNATURES = {
-    "gat_nn_distance": [_p, _p, _p, _p, _i, _i, _i, _p],
-    "gat_nn_distance_values": [_p, _p, _p, _i, _i, _i, _p],
+    "gat_nn_distance": [_p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+    "gat_nn_distance_values": [_p, _p, _p, _p, _i, _i, _i, _p],
     "gat_chamfer_grad1": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "gat_chamfer_grad1_vpu": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "gat_chamfer_loss_payloads": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,

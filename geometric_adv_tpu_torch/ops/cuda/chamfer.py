@@ -26,7 +26,7 @@ def _ptr(t: torch.Tensor) -> int:
 def nn_distance_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor):
     """K1: (dist1 [b,n], idx1 [b,n] i32, dist2 [b,m], idx2 [b,m] i32).
 
-    Two launches, one per direction."""
+    One launch for both directions."""
     b, n, m = build.cloud_sizes(xyz1, xyz2)
     lib = build.load_library()
     opts = dict(device=xyz1.device)
@@ -35,34 +35,29 @@ def nn_distance_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor):
     d2 = torch.empty((b, m), dtype=torch.float32, **opts)
     i2 = torch.empty((b, m), dtype=torch.int32, **opts)
     with torch.cuda.device(xyz1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for q, o, d, i, nq, no in ((xyz1, xyz2, d1, i1, n, m),
-                                   (xyz2, xyz1, d2, i2, m, n)):
-            build.check_launch(
-                lib.gat_nn_distance(_ptr(q), _ptr(o), _ptr(d), _ptr(i), b, nq,
-                                    no, stream),
-                "nn_distance",
-            )
-            nn_distance_cuda.launches += 1
+        build.check_launch(
+            lib.gat_nn_distance(_ptr(xyz1), _ptr(xyz2), _ptr(d1), _ptr(i1), _ptr(d2),
+                                _ptr(i2), b, n, m, torch.cuda.current_stream().cuda_stream),
+            "nn_distance",
+        )
+        nn_distance_cuda.launches += 1
     return d1, i1, d2, i2
 
 
 @build.counted
 def nn_distance_values_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor):
-    """K2: (dist1 [b,n], dist2 [b,m]) without the argmin. Two launches."""
+    """K2: (dist1 [b,n], dist2 [b,m]) without the argmin. One launch."""
     b, n, m = build.cloud_sizes(xyz1, xyz2)
     lib = build.load_library()
     d1 = torch.empty((b, n), dtype=torch.float32, device=xyz1.device)
     d2 = torch.empty((b, m), dtype=torch.float32, device=xyz1.device)
     with torch.cuda.device(xyz1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for q, o, d, nq, no in ((xyz1, xyz2, d1, n, m), (xyz2, xyz1, d2, m, n)):
-            build.check_launch(
-                lib.gat_nn_distance_values(_ptr(q), _ptr(o), _ptr(d), b, nq,
-                                           no, stream),
-                "nn_distance_values",
-            )
-            nn_distance_values_cuda.launches += 1
+        build.check_launch(
+            lib.gat_nn_distance_values(_ptr(xyz1), _ptr(xyz2), _ptr(d1), _ptr(d2), b, n,
+                                       m, torch.cuda.current_stream().cuda_stream),
+            "nn_distance_values",
+        )
+        nn_distance_values_cuda.launches += 1
     return d1, d2
 
 
@@ -109,8 +104,8 @@ def chamfer_loss_payloads_cuda(x1: torch.Tensor, x2: torch.Tensor):
     """K5: (d1 [b,n], i1 [b,n] i32, d2 [b,m], i2 [b,m] i32, nn1 [b,n,3],
     snn1 [b,n,3], cnt1 [b,n]).
 
-    Two kernels per call (K1's column direction, then the payload sweep),
-    counted as one launch of K5."""
+    Two kernels per call (K1's, then the O(n + m) payload pass), counted as
+    one launch of K5."""
     b, n, m = build.cloud_sizes(x1, x2)
     lib = build.load_library()
     opts = dict(dtype=torch.float32, device=x1.device)
