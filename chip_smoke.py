@@ -25,6 +25,11 @@ the script exits non-zero:
    - K1/K2/K3/K4 at [64, 2048, 3] clouds and a ragged 2000 x 2048 case,
      with exact ties: K1 and K2 values bit-equal and K1 indices equal, K3
      within 2.6e-6, K4 within 2.6e-6 of its plain version and of K3;
+   - K3 at [24, 64, 250] x 2048^2 on tie clouds and on clouds whose x2
+     clusters on three x1 points: bit-equal to the host's ascending-j sums,
+     within 2.6e-6 of the card's plain version, second runs bit-equal;
+     timed by torch.profiler (the kernel is shorter than its wrapper's host
+     time, which CUDA events measure);
    - K5 at [64, 2048^2], [64, 1024^2] and the ragged [16, 2000 x 2048],
      [8, 1100 x 300], [8, 2500 x 2048]: d1 i1 d2 i2 bit-equal to K1 and the
      plain version, nn1 = x2[i1], cnt1 equal, snn1 bit-equal to the host's
@@ -34,9 +39,13 @@ the script exits non-zero:
      surface clouds at [64, 2048^2]: values bit-equal to K1, indices equal;
      timed beside K1;
    - K6/K7 (the EMD sweep) at [50, 1024^2] (K6, K7 and each other),
-     [50, 2048^2] (K7) and the ragged [8, 1024 x 512], [8, 500 x 1000]:
-     cost rtol 1e-5, gradients atol 1e-4 * max|g|, in grads mode with and
-     without g2 and value-only, whose cost must be bit-equal;
+     [24, 2048^2] and [50, 2048^2] (K7) and the ragged [8, 1024 x 512],
+     [8, 500 x 1000]: cost rtol 1e-5, gradients atol 1e-4 * max|g|, in
+     grads mode with and without g2 and value-only, whose cost must be
+     bit-equal, second runs bit-equal; K7's numerics scanned on the card
+     (expf is +0 exactly below its skip threshold, its square root from
+     the gradient's rsqrt is sqrtf's) and the share of (warp, element)
+     pairs it skips at each level printed;
 4. six legs through the port's stage CLIs on ``--device cuda``, each with
    the launch counts zeroed just before and read just after:
    - chamfer: ``train_ae --loss chamfer`` (2048 points, 2 epochs), tst_ae,
@@ -65,13 +74,15 @@ the script exits non-zero:
    exact one on the card;
 6. rates: train samples/s per leg, attack pair-iterations/s of every attack
    leg and, for the exact, frozen-10 and fused chamfer attacks, at the
-   reference's batch of 250 pairs (each with a torch.profiler breakdown),
-   the chamfer matrix's pair-evaluations/s, and the peak device memory of
-   each leg.
+   reference's batch of 250 pairs and for the EMD attack at its 24 pairs
+   per call (each with a torch.profiler breakdown and the port's kernels'
+   share by source), the chamfer matrix's pair-evaluations/s, and the peak
+   device memory of each leg.
 
 Its last lines are a JSON record of the kernels (each with its shape, its
-time, the plain version's, its bound and what sets it, and its launches over
-the legs), the card as nvidia-smi reports it, and
+time and how it was taken (``ms_by``), the plain version's, its bound and
+what sets it, and its launches over the legs), the card as nvidia-smi
+reports it, and
 ``{"ok": true, "device": {...}}``. It writes only under
 ``build/`` in the checkout.
 """
@@ -88,6 +99,8 @@ import time
 import numpy as np
 import torch
 
+from geometric_adv_tpu_torch.ops.cuda.timing import device_timed, sync_timed
+
 ROOT = osp.dirname(osp.abspath(__file__))
 WORK = osp.join(ROOT, "build", "chip_smoke")
 CLASSES = ["sphere", "cube", "torus", "cone"]
@@ -100,6 +113,13 @@ EMD_ITERS = (100, 80)  # the EMD leg's attack, cut from the reference 500/400
 FORWARD_BATCHES = (24, 64, 250, 512)  # the attack's call, the kernel table's
 # shape, the reference batch; 512, the chamfer matrix's block (K2 only)
 RECORD_BATCH = 64  # the batch of the JSON line's K1-K5 records (the kernel table's)
+K3_CLUSTERED = ((2, 300, 2500), (3, N_POINTS, 600))  # x2 on three x1 points
+EMD_ATTACK_PAIRS = 24  # the EMD attack's pairs per call (K7 at [24, 2048^2])
+# what a record's "ms" is: a call's time by CUDA events around back-to-back
+# calls, or, for K3 (shorter than its wrapper's host time), the kernel's own
+# time on the device
+EVENT_TIME = "CUDA events per call"
+DEVICE_TIME = "torch.profiler device time per call"
 # published peaks of one H100 SXM (NVIDIA's H100 datasheet), for bounds
 FP32_PEAK, FP64_PEAK, HBM_RATE = 67e12, 34e12, 3.35e12
 CSRC = "geometric_adv_tpu_torch/csrc/"
@@ -119,22 +139,18 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
 }
 
 
+# the port's own kernel functions by source, for the profiles' shares
+OWN_KERNELS = {
+    "nn_distance.cu (K1, K2)": ("nn_kernel",),
+    "chamfer_grad.cu (K3, K4)": ("grad1_kernel", "grad1_vpu_kernel"),
+    "chamfer_payloads.cu (K5's payload pass)": ("payload_kernel",),
+    "emd_sweep.cu (K6, K7)": ("emd_block_kernel", "tiled_"),
+    "nn_hier.cu (K8)": ("hier_kernel",),
+}
+
+
 def fail(msg: str):
     raise RuntimeError(msg)
-
-
-def sync_timed(fn, reps: int) -> float:
-    """Mean milliseconds per call over ``reps`` calls, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def tie_clouds(b, n, m, seed):
@@ -174,7 +190,7 @@ def check_straddling_ties(k1, shape):
         fail(f"K1's straddling ties are not at distance 0 at {shape}")
 
 
-def kernel_bound(name, b, n, m, pairs=None):
+def kernel_bound(name, b, n, m, pairs=None, zero_share=None):
     """(bound_ms, bound_by, the operations' type) of one call at [b, n, 3] x
     [b, m, 3]: the larger of the operations over the card's peak for their
     type and the bytes over its memory rate, each input read once and each
@@ -183,7 +199,9 @@ def kernel_bound(name, b, n, m, pairs=None):
     one direction on the ``pairs`` K8's pruning needs); per pair and level
     of the EMD sweep (g1 mode), 27 FP32 (the distance, the kernel value, the
     row, column and cost products and sums, the g1 terms) and 6 FP64 (its
-    three float64 sums, product and add); K3/K4 are O(n + m)."""
+    three float64 sums, product and add), but only the distance (8 FP32) for
+    the ``zero_share`` of a level's pairs whose kernel value is exactly +0
+    (K7 skips their terms); K3/K4 are O(n + m)."""
     levels = 10
     cloud = b * (n + m) * 12
     fp32 = fp64 = 0.0
@@ -199,7 +217,9 @@ def kernel_bound(name, b, n, m, pairs=None):
         fp32 = 9.0 * pairs
         nbytes = cloud + b * (4 * n + 4 * m + 16 * -(-m // 128) + 8 * n)
     else:  # the EMD sweeps, g1 only
-        fp32, fp64 = 27.0 * levels * b * n * m, 6.0 * levels * b * n * m
+        live = levels - sum(zero_share or ())
+        fp32 = (8.0 * levels + 19.0 * live) * b * n * m
+        fp64 = 6.0 * live * b * n * m
         nbytes = cloud + b * (4 + 12 * n)
     times = {"FP32": fp32 / FP32_PEAK, "FP64": fp64 / FP64_PEAK, "bytes": nbytes / HBM_RATE}
     kind = max(times, key=times.get)
@@ -208,8 +228,8 @@ def kernel_bound(name, b, n, m, pairs=None):
 
 def chamfer_kernel_phase(cu, ch):
     """K1/K2/K3/K4 against their plain versions, K4 also against K3;
-    returns the records of K3 and K4 (K1 and K2 are timed in
-    forward_kernel_phase)."""
+    returns the record of K4 (K1 and K2 are timed in forward_kernel_phase,
+    K3 in grad_kernel_phase)."""
     records = {}
     for b, n, m in ((64, N_POINTS, N_POINTS), (16, 2000, N_POINTS)):
         x1, x2 = tie_clouds(b, n, m, seed=n)
@@ -249,28 +269,72 @@ def chamfer_kernel_phase(cu, ch):
         if not (k4_err <= GRAD_TOL and k4_k3 <= GRAD_TOL):
             fail(f"K4 differs from its plain version or K3 at {shape}")
         if n == m:  # time at the main-path shape
-            timings = {
-                "chamfer_grad1_cuda": (
-                    k3_err,
-                    sync_timed(lambda: cu.chamfer_grad1_cuda(
-                        x1, x2, i1, i2, g1, g2), 20),
-                    sync_timed(lambda: ch.chamfer_grad1_plain(
-                        x1, x2, i1, i2, g1, g2), 5),
-                ),
-                "chamfer_grad1_vpu_cuda": (
-                    k4_err,
-                    sync_timed(lambda: cu.chamfer_grad1_vpu_cuda(
-                        x1, x2, i1, i2, g1, g2), 20),
-                    sync_timed(lambda: ch.chamfer_grad1_vpu_plain(
-                        x1, x2, i1, i2, g1, g2), 5),
-                ),
-            }
-            for name, (err, ms, plain_ms) in timings.items():
-                records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                 "bnm": (b, n, m)}
-                print(f"  {name} at {shape}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms")
+            ms = sync_timed(lambda: cu.chamfer_grad1_vpu_cuda(x1, x2, i1, i2, g1, g2), 20)
+            plain_ms = sync_timed(lambda: ch.chamfer_grad1_vpu_plain(
+                x1, x2, i1, i2, g1, g2), 5)
+            records["chamfer_grad1_vpu_cuda"] = {"max_abs_err": k4_err, "ms": ms,
+                                                 "plain_ms": plain_ms, "bnm": (b, n, m)}
+            print(f"  chamfer_grad1_vpu_cuda at {shape}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms")
         del x1, x2, d1, i1, d2, i2, r1, j1, r2, j2, v1, v2, k3, p3, k4, p4, p4_card
+    torch.cuda.synchronize()
+    return records
+
+
+def grad_kernel_phase(cu, ch):
+    """K3 on tie clouds at FORWARD_BATCHES[:3] x 2048^2 and on clouds whose
+    x2 clusters on three x1 points (K3_CLUSTERED: segments of hundreds of
+    j, most segments empty), with the K1 argmins: bit-equal to the plain
+    version on the host, whose scatter sums run in ascending j as K3's do
+    (tests/test_torch_ops_chamfer_ties.py pins it to an explicit loop),
+    within GRAD_TOL of the plain version on the card (an atomic scatter), a
+    second run bit-equal to the first. Timed on the tie clouds beside its
+    bound: the kernel's own time (torch.profiler, 50 calls), which is
+    shorter than the wrapper's host time that CUDA events around the calls
+    measure (both printed). Returns the record at RECORD_BATCH."""
+    records = {}
+    cases = ([("tie clouds", b, N_POINTS, N_POINTS) for b in FORWARD_BATCHES[:3]]
+             + [("clustered clouds", b, n, m) for b, n, m in K3_CLUSTERED])
+    for kind, b, n, m in cases:
+        rng = np.random.RandomState(b * n + m)
+        if kind == "tie clouds":
+            x1, x2 = tie_clouds(b, n, m, seed=b + 1)
+        else:
+            a = rng.rand(b, n, 3).astype(np.float32)
+            c = (a[:, rng.randint(0, 3, m)] + 1e-3 * rng.rand(b, m, 3)).astype(np.float32)
+            x1, x2 = torch.from_numpy(a).cuda(), torch.from_numpy(c).cuda()
+        _, i1, _, i2 = cu.nn_distance_cuda(x1, x2)
+        g1, g2 = (torch.from_numpy(rng.rand(b, k).astype(np.float32)).cuda() for k in (n, m))
+        args = (x1, x2, i1, i2, g1, g2)
+        got = cu.chamfer_grad1_cuda(*args)
+        again = cu.chamfer_grad1_cuda(*args)
+        plain = ch.chamfer_grad1_plain(*args)
+        host = ch.chamfer_grad1_plain(*(t.cpu() for t in args))
+        torch.cuda.synchronize()
+        shape = f"[{b},{n},3]x[{b},{m},3]"
+        err = (got - plain).abs().max().item()
+        if not torch.equal(got.cpu(), host):
+            fail(f"K3 differs from the host's ascending-j sums on the {kind} {shape}")
+        if not torch.equal(again, got):
+            fail(f"K3's second run differs from its first on the {kind} {shape}")
+        if not err <= GRAD_TOL:
+            fail(f"K3 differs from the plain version by {err} on the {kind} {shape}")
+        print(f"kernel check K3 on the {kind} {shape}: bit-equal to the host's "
+              f"ascending-j sums, second run bit-equal, max abs err {err:.3g} from the "
+              f"card's plain version (tol {GRAD_TOL})")
+        if kind == "tie clouds":
+            ms = device_timed(lambda: cu.chamfer_grad1_cuda(*args), 50)
+            call_ms = sync_timed(lambda: cu.chamfer_grad1_cuda(*args), 50)
+            bound_ms = kernel_bound("chamfer_grad1_cuda", b, n, m)[0]
+            print(f"  chamfer_grad1_cuda at {shape}: {ms:.4f} ms on the device, "
+                  f"{call_ms:.4f} ms a call by CUDA events; bound {bound_ms:.4f} ms "
+                  f"({100 * bound_ms / ms:.1f}%)")
+            if b == RECORD_BATCH:
+                records["chamfer_grad1_cuda"] = {
+                    "max_abs_err": err, "ms": ms, "ms_by": DEVICE_TIME, "call_ms": call_ms,
+                    "plain_ms": sync_timed(lambda: ch.chamfer_grad1_plain(*args), 5),
+                    "bnm": (b, n, m)}
+        del x1, x2, args, got, again, plain, host
     torch.cuda.synchronize()
     return records
 
@@ -494,12 +558,23 @@ def sweep_errors(got, want):
 
 def emd_kernel_phase(cu_emd, emd):
     """K6/K7 against the plain sweep in every mode; value-only costs
-    bit-equal to grads mode; times at the main path's shapes (mean of 10
-    kernel calls and 3 plain calls) in its mode, g1 only."""
+    bit-equal to grads mode; second runs bit-equal; K7's numerics on the
+    card (``numerics_scan``: expf's underflow threshold, the square root
+    from rsqrt) and the share of (warp, element) pairs it skips at each
+    level; times at the main path's shapes (K6 [50, 1024^2]; K7 [50, 2048^2]
+    and the EMD attack's [24, 2048^2]; mean of 10 kernel calls and 3 plain
+    calls) in its mode, g1 only."""
+    scan = cu_emd.numerics_scan(torch.device("cuda"))
+    print(f"kernel check K7's numerics on the card: {scan}")
+    if (scan["expf_mismatches"] or scan["sqrt_mismatches"]
+            or scan["most_negative_positive"] != cu_emd.EXP_UNDERFLOW):
+        fail(f"K7's numerics do not hold on this card: {scan}")
     kernels = {"K6": cu_emd.emd_sweep_block_cuda, "K7": cu_emd.emd_sweep_tiled_cuda}
     records = {}
     for b, n, m, names in ((8, 1024, 512, "K6 K7"), (8, 500, 1000, "K6 K7"),
-                           (50, 1024, 1024, "K6 K7"), (50, N_POINTS, N_POINTS, "K7")):
+                           (50, 1024, 1024, "K6 K7"),
+                           (EMD_ATTACK_PAIRS, N_POINTS, N_POINTS, "K7"),
+                           (50, N_POINTS, N_POINTS, "K7")):
         rng = np.random.RandomState(n + m)
         x = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32) - 0.5).cuda()
         y = torch.from_numpy(rng.rand(b, m, 3).astype(np.float32) - 0.5).cuda()
@@ -522,19 +597,37 @@ def emd_kernel_phase(cu_emd, emd):
                     fail(f"{name} differs from the plain sweep at {shape} {flags}: "
                          f"cost rel {errs[0]:.3g}, grad {errs[1]:.3g} of max|g|")
                 worst = tuple(max(a, c) for a, c in zip(worst, errs))
+            again = fn(x, y, emd._LEVELS, True, True)
+            if not all(torch.equal(a, c) for a, c in zip(again, full)):
+                fail(f"{name}'s second run differs from its first at {shape}")
             outs[name] = full
             print(f"kernel check {name} {shape}: cost rel {worst[0]:.3g} (tol "
                   f"{EMD_COST_RTOL}), grads {worst[1]:.3g} of max|g| (tol "
-                  f"{EMD_GRAD_REL}), value-only cost bit-equal")
-            main_shape = (b == 50 and n == (1024 if name == "K6" else N_POINTS))
-            if main_shape:
-                wrapper = fn.__name__
-                ms = sync_timed(lambda: fn(x, y, emd._LEVELS, True, False), 10)
-                plain_ms = sync_timed(lambda: emd.emd_sweep_plain(x, y, True, False), 3)
-                records[wrapper] = {"max_abs_err": worst[2], "ms": ms,
-                                    "plain_ms": plain_ms, "bnm": (b, n, m)}
-                print(f"  {wrapper} at {shape}, g1 only: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms")
+                  f"{EMD_GRAD_REL}), value-only cost bit-equal, second run bit-equal")
+            if not (b in (50, EMD_ATTACK_PAIRS) and n == (1024 if name == "K6" else N_POINTS)):
+                continue
+            wrapper = fn.__name__
+            ms = sync_timed(lambda: fn(x, y, emd._LEVELS, True, False), 10)
+            record = {"max_abs_err": worst[2], "ms": ms, "bnm": (b, n, m)}
+            note = ""
+            if name == "K7":
+                record["zero_share"] = zero_shares(emd, cu_emd, x, y)
+                counts = torch.zeros(len(emd._LEVELS), 3, dtype=torch.int64, device="cuda")
+                fn(x, y, emd._LEVELS, True, False, skip_counts=counts)
+                pairs = torch.tensor([b * -(-m // 32) * n, b * -(-n // 32) * m,
+                                      b * -(-n // 32) * m], dtype=torch.float64)
+                skipped = (counts.cpu().double() / pairs).numpy().round(4).tolist()
+                note = (f"; (warp, element) pairs skipped by level {emd._LEVELS} "
+                        f"(column, row closing, row opening sweeps): {skipped}; pairs "
+                        f"whose kernel value is +0: {[round(z, 4) for z in record['zero_share']]}")
+            bound_ms = kernel_bound(wrapper, b, n, m, zero_share=record.get("zero_share"))[0]
+            print(f"  {wrapper} at {shape}, g1 only: kernel {ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%){note}")
+            if b == 50:
+                record["plain_ms"] = sync_timed(
+                    lambda: emd.emd_sweep_plain(x, y, True, False), 3)
+                print(f"  plain sweep at {shape}, g1 only: {record['plain_ms']:.4f} ms")
+                records[wrapper] = record
         if len(outs) == 2:
             errs = sweep_errors(outs["K6"], outs["K7"])
             if not (errs[0] <= EMD_COST_RTOL and errs[1] <= EMD_GRAD_REL):
@@ -545,6 +638,19 @@ def emd_kernel_phase(cu_emd, emd):
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return records
+
+
+def zero_shares(emd, cu_emd, x, y):
+    """Per level, the share of the [b, n, m] pairs whose kernel value
+    exp(level * d2) is exactly +0 (level * d2 below EXP_UNDERFLOW): the
+    terms the function does not need, which K7's bound leaves out."""
+    shares = []
+    with torch.no_grad():
+        for k in range(x.shape[0]):
+            sqd = emd._sqdist_planes(x[k:k + 1], y[k:k + 1])
+            shares.append([float((level * sqd < cu_emd.EXP_UNDERFLOW).double().mean())
+                           for level in emd._LEVELS])
+    return np.mean(shares, axis=0).tolist()
 
 
 def run_stages(stages):
@@ -765,9 +871,10 @@ def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
 
 
 def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20, **kw):
-    """Attack pair-iterations/s at the reference's attack batch (250 pairs
-    of 2048-point clouds), with the attack_batch options ``kw``, then a
-    torch.profiler breakdown of 5 iterations: device time by kernel and the
+    """Attack pair-iterations/s at ``pairs`` pairs of 2048-point clouds (by
+    default the reference's attack batch, 250), with the attack_batch
+    options ``kw``, then a torch.profiler breakdown of 5 iterations: device
+    time by kernel, the port's own kernels' share by source file, and the
     device's busy share of the wall clock."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -791,7 +898,7 @@ def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20, **kw):
     run(iters)
     torch.cuda.synchronize()
     rate = pairs * iters / (time.time() - t0)
-    print(f"{label} attack at the reference batch: {rate:.1f} pair-iters/s "
+    print(f"{label} attack at {pairs} pairs: {rate:.1f} pair-iters/s "
           f"({pairs} pairs x {N_POINTS} points, {iters} iterations)")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -819,6 +926,13 @@ def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20, **kw):
     for key, us, count in ranked[:8] + own:
         print(f"  {100 * us / busy_us:5.1f}%  {us / 1e3:8.3f} ms  x{count:<5d} "
               f"{key[:240]}")
+    by_source = {}
+    for key, us, _ in rows:
+        for source, names in OWN_KERNELS.items():
+            if any(f"namespace)::{k}" in key for k in names):
+                by_source[source] = by_source.get(source, 0.0) + us
+    print("  the port's own kernels by source: " + ", ".join(
+        f"{src} {100 * us / busy_us:.1f}%" for src, us in sorted(by_source.items())))
     return rate
 
 
@@ -871,6 +985,7 @@ def main() -> int:
     cu.reset_launch_counts()
     records = forward_kernel_phase(cu, ch)
     records.update(chamfer_kernel_phase(cu, ch))
+    records.update(grad_kernel_phase(cu, ch))
     payload_kernel_phase(cu, ch)
     records.update(hier_kernel_phase(cu, hier, ch))
     # K4 and K8 are on no path of the package (as in the JAX package): their
@@ -1000,6 +1115,8 @@ def main() -> int:
     print(f"EMD attack {rates['EMD attack pair-iters/s']:.1f} pair-iters/s "
           f"({n_pairs} pairs x {EMD_ITERS[0]} iterations in {seconds:.2f} s, "
           "stage wall clock)")
+    rates["EMD attack pair-iters/s, 24 pairs in one call"] = attack_at_reference_batch(
+        victim, "EMD", pairs=EMD_ATTACK_PAIRS, iters=10, ae_loss_type="emd")
     del victim
     torch.cuda.synchronize()
 
@@ -1039,13 +1156,16 @@ def main() -> int:
     kernels = []
     for name, rec in records.items():
         b, n, m = rec.pop("bnm")
-        bound_ms, bound_by, kind = kernel_bound(name, b, n, m, rec.pop("pairs", None))
+        bound_ms, bound_by, kind = kernel_bound(name, b, n, m, rec.pop("pairs", None),
+                                                rec.pop("zero_share", None))
+        rec.setdefault("ms_by", EVENT_TIME)
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": launches[name],
             "shape": f"[{b},{n},3]x[{b},{m},3]", "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_type": kind, "library_ms": None, **rec})
-        print(f"kernel {name} at [{b},{n},3]x[{b},{m},3]: {rec['ms']:.4f} ms, bound "
+        print(f"kernel {name} at [{b},{n},3]x[{b},{m},3]: {rec['ms']:.4f} ms "
+              f"({rec['ms_by']}), bound "
               f"{bound_ms:.4f} ms ({kind}), {100 * bound_ms / rec['ms']:.1f}% of the bound; "
               f"{launches[name]} launches over the legs")
     print(json.dumps({"kernels": kernels}))

@@ -24,17 +24,10 @@
 //      - cnt1 and snn1 are a segmented sum over j grouped by i2[j], each i's
 //        sum taken in ascending j from 0.0f, the order of an explicit loop
 //        (and of the TPU kernel's masked sweep), so snn1 keeps its bits and runs repeat
-//        exactly. The block takes j in rounds of 256, one per thread. In a
-//        warp __match_any_sync groups the lanes with the same i2; across the
-//        warps, the groups of one i are peeled in warp order: each group's
-//        lowest lane bids its warp for i with a shared-memory atomic
-//        minimum, and the winning warp's group adds its points to i's running
-//        sum in lane order and its size to i's integer count. A round takes as
-//        many peels as the most warps sharing one i (8 at most), each two
-//        block barriers. This is the counting
-//        sort's stable placement with the sums folded in: the segment
-//        offsets are never needed, because each point is added where it would
-//        be placed.
+//        exactly (csrc/segment_sum.cuh, which K3 shares). The block takes j
+//        in rounds of 256, one per thread; the groups of lanes with the
+//        same i2 are peeled in warp order, and each adds its points to i's
+//        running sum in lane order and its size to i's integer count.
 //      x2 and i2 are staged in shared memory, 2048 points at a time, and the
 //      payloads of up to 2048 x1 points stay in shared memory; past that the
 //      block takes x2 again for the next 2048 (the frozen payloads' 2500 x
@@ -62,16 +55,16 @@
 
 #include <cuda_runtime.h>
 
+#include "segment_sum.cuh"
+
 extern "C" int gat_nn_distance(const float* x1, const float* x2, float* d1, int* i1,
                                float* d2, int* i2, int b, int n, int m, void* stream);
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kKeys = 2048;   // x1 points whose payloads a pass keeps
 constexpr int kStage = 2048;  // x2 points staged at a time
-constexpr unsigned kFull = 0xffffffffu;
 // staged points, the payloads' running sums and counts, two bid arrays
 constexpr size_t kSmem = kStage * sizeof(float4) + kKeys * 4 * sizeof(float) +
                          2 * kKeys * sizeof(int);
@@ -131,32 +124,19 @@ payload_kernel(const float* __restrict__ x2, const int* __restrict__ i1,
           const int k = __float_as_int(pts[t].w);
           if (k >= 0 && k < nk) slot = k;
         }
-        const unsigned grp = __match_any_sync(kFull, slot);
-        // the group's lowest lane carries it: its members in ascending lane = j
-        bool pending = slot >= 0 && (grp & ((1u << lane) - 1u)) == 0u;
-        // peel the groups of each i in warp order (warps hold ascending j);
-        // a winner resets its bid, which a loser reading it late can not
-        // mistake for its own warp
-        for (int parity = 0; __syncthreads_or(pending); parity ^= 1) {
-          int* b = bid + parity * kKeys;
-          if (pending) atomicMin(&b[slot], warp);
-          __syncthreads();
-          if (pending && b[slot] == warp) {
-            float ax = sx[slot], ay = sy[slot], az = sz[slot];
-            for (unsigned g = grp; g != 0u; g &= g - 1u) {
-              const float4 p = pts[r0 + warp * 32 + __ffs(g) - 1];
-              ax = __fadd_rn(ax, p.x);
-              ay = __fadd_rn(ay, p.y);
-              az = __fadd_rn(az, p.z);
-            }
-            sx[slot] = ax;
-            sy[slot] = ay;
-            sz[slot] = az;
-            cnt[slot] += __popc(grp);
-            b[slot] = INT_MAX;
-            pending = false;
+        gat_segment_round(slot, bid, kKeys, [&](int s, unsigned grp) {
+          float ax = sx[s], ay = sy[s], az = sz[s];
+          for (unsigned g = grp; g != 0u; g &= g - 1u) {
+            const float4 p = pts[r0 + warp * 32 + __ffs(g) - 1];
+            ax = __fadd_rn(ax, p.x);
+            ay = __fadd_rn(ay, p.y);
+            az = __fadd_rn(az, p.z);
           }
-        }
+          sx[s] = ax;
+          sy[s] = ay;
+          sz[s] = az;
+          cnt[s] += __popc(grp);
+        });
       }
     }
     __syncthreads();

@@ -53,7 +53,8 @@ SIGNATURES = {
     "gat_nn_direction_hier": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "gat_emd_sweep_block": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _f, _fp, _i, _p],
     "gat_emd_sweep_tiled": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _f, _f,
-                            _fp, _i, _p],
+                            _fp, _i, _p, _p],
+    "gat_emd_numerics_scan": [_p, _p],
 }
 
 _lock = threading.Lock()

@@ -61,6 +61,11 @@ def _vecmat(v: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return (v[:, None, :] @ a)[:, 0]
 
 
+def auction_kernel(level: float, sqd: torch.Tensor) -> torch.Tensor:
+    """K = exp(level * d2), the plane of one auction round."""
+    return torch.exp(level * sqd)
+
+
 def approx_match(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
     """Soft assignment match[b, m, n]; carries no gradient
     (reference: tf_approxmatch.py:10-19)."""
@@ -144,7 +149,7 @@ def emd_sweep_plain(xyz1: torch.Tensor, xyz2: torch.Tensor,
     remain_l = torch.full((b, n), mult_l, dtype=dtype, device=xyz1.device)
     remain_r = torch.full((b, m), mult_r, dtype=dtype, device=xyz1.device)
     for level in _LEVELS:
-        k_plane = torch.exp(level * sqd)
+        k_plane = auction_kernel(level, sqd)
         k = k_plane.to(acc)
         rl, rr = remain_l.to(acc), remain_r.to(acc)
         suml = _matvec(k, rr) + 1e-9

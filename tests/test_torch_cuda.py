@@ -57,10 +57,12 @@ def test_kernels_match_plain_versions(cuda, b, n, m):
     gen = torch.Generator().manual_seed(b)
     g1 = torch.rand(b, n, generator=gen).to(cuda)
     g2 = torch.rand(b, m, generator=gen).to(cuda)
-    k3 = cu.chamfer_grad1_cuda(a, c, got[1], got[3], g1, g2)
-    p3 = ch.chamfer_grad1_plain(a, c, got[1], got[3], g1, g2)
-    torch.cuda.synchronize()
-    assert (k3 - p3).abs().max().item() <= GRAD_TOL
+    args = (a, c, got[1], got[3], g1, g2)
+    k3 = cu.chamfer_grad1_cuda(*args)
+    # the plain version on the host: its scatter sums run in ascending j, as
+    # K3's do (on the card they take atomics' order, up to 2 ulp away)
+    host = ch.chamfer_grad1_plain(*(t.cpu() for t in args))
+    assert torch.equal(k3.cpu(), host)
 
 
 def test_autograd_on_card_goes_through_the_kernels(cuda):
@@ -141,6 +143,32 @@ def test_k5_payloads_on_long_segments(cuda, b, n, m):
     for _ in range(2):
         got = cu.chamfer_loss_payloads_cuda(a.to(cuda), c.to(cuda))
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, host))
+
+
+@pytest.mark.parametrize("kind,b,n,m", [("ties", 24, 2048, 2048), ("ties", 2, 2500, 2048),
+                                        ("clustered", 2, 300, 2500),
+                                        ("clustered", 3, 2048, 600)])
+def test_k3_bit_equal_to_the_ascending_j_sum(cuda, kind, b, n, m):
+    """K3 against its plain version on the host, whose scatter sums run in
+    ascending j as K3's do (tests/test_torch_ops_chamfer_ties.py pins it to
+    an explicit loop): bit-equal on tie clouds and on x2 clustered on three
+    x1 points (segments of hundreds of j, most segments empty), and a
+    second run bit-equal to the first."""
+    rng = np.random.RandomState(b * n + m)
+    if kind == "ties":
+        a, c = straddling_ties(b, n, m, seed=n + m)
+    else:
+        x1 = rng.rand(b, n, 3).astype(np.float32)
+        x2 = (x1[:, rng.randint(0, 3, m)] + 1e-3 * rng.rand(b, m, 3)).astype(np.float32)
+        a, c = torch.from_numpy(x1), torch.from_numpy(x2)
+    g1 = torch.from_numpy(rng.rand(b, n).astype(np.float32))
+    g2 = torch.from_numpy(rng.rand(b, m).astype(np.float32))
+    _, i1, _, i2 = ch.nn_distance_plain(a, c)
+    host = ch.chamfer_grad1_plain(a, c, i1, i2, g1, g2)
+    args = [t.to(cuda) for t in (a, c, i1, i2, g1, g2)]
+    first = cu.chamfer_grad1_cuda(*args)
+    assert torch.equal(first.cpu(), host)
+    assert torch.equal(cu.chamfer_grad1_cuda(*args), first)
 
 
 def unit_clouds(b, n, m, seed):
@@ -345,3 +373,39 @@ def test_emd_wrappers_reject_what_the_kernels_do_not_take(cuda):
     big = torch.zeros(1, 1025, 3, device=cuda)
     with pytest.raises(ValueError):
         cu_emd.emd_sweep_block_cuda(big, big, emd._LEVELS, True, True)
+    with pytest.raises(ValueError):
+        cu_emd.emd_sweep_tiled_cuda(a, c, emd._LEVELS, True, True,
+                                    skip_counts=torch.zeros(3, dtype=torch.int64, device=cuda))
+
+
+@pytest.mark.parametrize("b,n,m", [(24, 2048, 2048), (3, 2500, 2048)])
+def test_k7_repeats_keep_every_bit(cuda, b, n, m):
+    """K7 in g1 mode (the attack's call) and in grads mode: a second run
+    bit-equal to the first."""
+    a, c = (t.to(cuda) for t in emd_clouds(b, n, m, seed=b + n))
+    for flags in ((True, False), (True, True)):
+        first = cu_emd.emd_sweep_tiled_cuda(a, c, emd._LEVELS, *flags)
+        again = cu_emd.emd_sweep_tiled_cuda(a, c, emd._LEVELS, *flags)
+        for g, w in zip(again, first):
+            assert (g is None) == (w is None)
+            if g is not None:
+                assert torch.equal(g, w)
+
+
+def test_k7_skips_and_their_numerics(cuda):
+    """The card's expf is +0 exactly below EXP_UNDERFLOW over [-110, -100],
+    and K7's square root from the gradient's rsqrt is sqrtf's over
+    [1e-20, FLT_MAX]; K7 skips most (warp, element) pairs at the highest
+    level and none at level 0."""
+    scan = cu_emd.numerics_scan(cuda)
+    assert scan["expf_mismatches"] == 0 and scan["sqrt_mismatches"] == 0
+    assert scan["most_negative_positive"] == cu_emd.EXP_UNDERFLOW
+    assert scan["least_negative_zero"] < cu_emd.EXP_UNDERFLOW
+    a, c = (t.to(cuda) for t in emd_clouds(2, 512, 640, seed=9))
+    counts = torch.zeros(len(emd._LEVELS), 3, dtype=torch.int64, device=cuda)
+    cu_emd.emd_sweep_tiled_cuda(a, c, emd._LEVELS, True, True, skip_counts=counts)
+    pairs = torch.tensor([2 * 640 // 32 * 512, 2 * 512 // 32 * 640, 2 * 512 // 32 * 640],
+                         dtype=torch.float64)
+    share = counts.cpu().double() / pairs
+    assert share[0].min() > 0.3 and (share[-1] == 0).all()
+    assert (share <= 1).all()

@@ -10,8 +10,9 @@ On the card (tests/test_torch_cuda.py, chip_smoke.py) the kernels are held
 bit-equal to the plain versions on these clouds; here the plain versions
 are held to the JAX package: indices equal and distances bit-equal to its
 "direct" method, the payloads at tests/test_torch_ops_chamfer_fused.py's
-bars against the JAX kernel in interpreter mode, and snn1 bit-equal to an
-explicit ascending-j loop.
+bars against the JAX kernel in interpreter mode, and snn1 and K3's
+gradient (csrc/chamfer_grad.cu, which adds each point's scatter terms in
+ascending j) bit-equal to explicit ascending-j loops.
 """
 
 import numpy as np
@@ -113,3 +114,46 @@ def test_plain_snn1_is_an_ascending_j_loop(b, n, m):
     np.testing.assert_array_equal(snn1, want)
     np.testing.assert_array_equal(cnt1, count)
     assert count.max() > 1
+
+
+def grad1_loop(x1, x2, i1, i2, g1, g2):
+    """K3's output as the redesigned kernel forms it: each scatter term
+    (2*g2[j]) * (x2[j] - x1[i]) added to i's sum in ascending j from 0.0f,
+    then (2*g1) * (x1 - x2[idx1]) less the sum; float32 throughout."""
+    b, n, _ = x1.shape
+    two = np.float32(2.0)
+    out = np.empty_like(x1)
+    for bi in range(b):
+        s = np.zeros((n, 3), np.float32)
+        for j, i in enumerate(i2[bi]):
+            if 0 <= i < n:
+                s[i] += (two * g2[bi, j]) * (x2[bi, j] - x1[bi, i])
+        out[bi] = (two * g1[bi])[:, None] * (x1[bi] - x2[bi, i1[bi]]) - s
+    return out
+
+
+@pytest.mark.parametrize("kind,b,n,m", [("ties", 2, 2048, 2048), ("ties", 1, 2500, 2048),
+                                        ("clustered", 2, 300, 2500),
+                                        ("clustered", 2, 2048, 600)])
+def test_plain_grad1_is_an_ascending_j_loop(kind, b, n, m):
+    """K3 sums each point's scatter terms in ascending j from 0.0f; its
+    plain version (the card's test oracle) must hold the same bits, on tie
+    clouds and on clouds whose x2 clusters on three x1 points (segments of
+    hundreds of j, every other point's segment empty)."""
+    rng = np.random.RandomState(b * n + m)
+    if kind == "ties":
+        x1, x2 = straddling_ties(b, n, m, seed=n + m)
+    else:
+        x1 = rng.rand(b, n, 3).astype(np.float32)
+        x2 = (x1[:, rng.randint(0, 3, m)] + 1e-3 * rng.rand(b, m, 3)).astype(np.float32)
+    g1 = rng.rand(b, n).astype(np.float32)
+    g2 = rng.rand(b, m).astype(np.float32)
+    _, i1, _, i2 = (t.numpy() for t in tchamfer.nn_distance_plain(
+        torch.from_numpy(x1), torch.from_numpy(x2)))
+    got = tchamfer.chamfer_grad1_plain(*(torch.from_numpy(a) for a in (x1, x2, i1, i2, g1, g2)))
+    np.testing.assert_array_equal(got.numpy(), grad1_loop(x1, x2, i1, i2, g1, g2))
+    counts = np.stack([np.bincount(i, minlength=n) for i in i2])
+    if kind == "clustered":
+        assert counts.max() >= 100 and (counts == 0).mean() > 0.5
+    else:
+        assert counts.max() >= 2
