@@ -24,7 +24,9 @@ the script exits non-zero:
      ascending-j sums, every second run bit-equal to the first;
    - K1/K2/K3/K4 at [64, 2048, 3] clouds and a ragged 2000 x 2048 case,
      with exact ties: K1 and K2 values bit-equal and K1 indices equal, K3
-     within 2.6e-6, K4 within 2.6e-6 of its plain version and of K3;
+     within 2.6e-6, K4 bit-equal to its plain version on the host (whose
+     scatter sums run in ascending j, as K4's do), its second run bit-equal,
+     within 2.6e-6 of K3; K4 timed as K3 is, by torch.profiler;
    - K3 at [24, 64, 250] x 2048^2 on tie clouds and on clouds whose x2
      clusters on three x1 points: bit-equal to the host's ascending-j sums,
      within 2.6e-6 of the card's plain version, second runs bit-equal;
@@ -38,15 +40,17 @@ the script exits non-zero:
    - K8 (``nn_distance_hier``) on tie clouds and on the synthetic dataset's
      surface clouds at [64, 2048^2]: values bit-equal to K1, indices equal;
      timed beside K1;
-   - K6/K7 (the EMD sweep) at [50, 1024^2] (K6, K7 and each other),
+   - K6/K7 (the EMD sweep) at [24, 1024^2] and [50, 1024^2] (K6, K7 and
+     each other: bit-equal),
      [24, 2048^2] and [50, 2048^2] (K7) and the ragged [8, 1024 x 512],
      [8, 500 x 1000]: cost rtol 1e-5, gradients atol 1e-4 * max|g|, in
      grads mode with and without g2 and value-only, whose cost must be
-     bit-equal, second runs bit-equal; K7's numerics scanned on the card
-     (expf is +0 exactly below its skip threshold, its square root from
-     the gradient's rsqrt is sqrtf's) and the share of (warp, element)
-     pairs it skips at each level printed;
-4. six legs through the port's stage CLIs on ``--device cuda``, each with
+     bit-equal, second runs bit-equal; each timed at 24 and 50 pairs; the
+     sweeps' numerics scanned on the card (expf is +0 exactly below their
+     skip threshold, their square root from the gradient's rsqrt is
+     sqrtf's), the share of (warp, element) pairs K7 skips at each level
+     and K6's clusters resident at once printed;
+4. seven legs through the port's stage CLIs on ``--device cuda``, each with
    the launch counts zeroed just before and read just after:
    - chamfer: ``train_ae --loss chamfer`` (2048 points, 2 epochs), tst_ae,
      prepare_indices_for_attack (all three index kinds), run_attack
@@ -59,8 +63,11 @@ the script exits non-zero:
    - EMD: ``train_ae --loss emd`` (2048 points, batch 50, 3 epochs), then the
      same stages with run_attack cut to 100/80 iterations; K7 and K2 must
      launch;
-   - EMD at 1024 points: ``train_ae --loss emd --n_points 1024`` (2 epochs)
-     and tst_ae; K6 must launch;
+   - EMD at 1024 points: ``train_ae --loss emd --n_points 1024`` (2
+     epochs); K6 must launch;
+   - EMD attack at 1024 points: the stages after training on that victim,
+     run_attack cut to 100/80 iterations; K6 must launch in run_attack, K7
+     never there;
    - chamfer at 1024 points: ``train_ae --loss chamfer --n_points 1024``
      (2 epochs) and tst_ae; K5 (the fused loss) must launch;
    all on a synthetic dataset of sphere, cube, torus and cone, 60 clouds each;
@@ -70,14 +77,14 @@ the script exits non-zero:
    attack on the host CPU (plain versions) on a small input: all metrics for
    chamfer (exact, frozen-10 and fused), and for the EMD victim with the
    perturbation-norm distance; the target-reconstruction metrics with the
-   EMD distance; the frozen attack refreshed every step agrees with the
-   exact one on the card;
+   EMD distance (both EMD victims); the frozen attack refreshed every step
+   agrees with the exact one on the card;
 6. rates: train samples/s per leg, attack pair-iterations/s of every attack
    leg and, for the exact, frozen-10 and fused chamfer attacks, at the
-   reference's batch of 250 pairs and for the EMD attack at its 24 pairs
-   per call (each with a torch.profiler breakdown and the port's kernels'
-   share by source), the chamfer matrix's pair-evaluations/s, and the peak
-   device memory of each leg.
+   reference's batch of 250 pairs and for the EMD attacks (2048 and 1024
+   points) at their 24 pairs per call (each with a torch.profiler breakdown
+   and the port's kernels' share by source), the chamfer matrix's
+   pair-evaluations/s, and the peak device memory of each leg.
 
 Its last lines are a JSON record of the kernels (each with its shape, its
 time and how it was taken (``ms_by``), the plain version's, its bound and
@@ -142,7 +149,7 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
 # the port's own kernel functions by source, for the profiles' shares
 OWN_KERNELS = {
     "nn_distance.cu (K1, K2)": ("nn_kernel",),
-    "chamfer_grad.cu (K3, K4)": ("grad1_kernel", "grad1_vpu_kernel"),
+    "chamfer_grad.cu (K3, K4)": ("grad1_kernel",),
     "chamfer_payloads.cu (K5's payload pass)": ("payload_kernel",),
     "emd_sweep.cu (K6, K7)": ("emd_block_kernel", "tiled_"),
     "nn_hier.cu (K8)": ("hier_kernel",),
@@ -201,7 +208,7 @@ def kernel_bound(name, b, n, m, pairs=None, zero_share=None):
     row, column and cost products and sums, the g1 terms) and 6 FP64 (its
     three float64 sums, product and add), but only the distance (8 FP32) for
     the ``zero_share`` of a level's pairs whose kernel value is exactly +0
-    (K7 skips their terms); K3/K4 are O(n + m)."""
+    (K6 and K7 skip their terms); K3/K4 are O(n + m)."""
     levels = 10
     cloud = b * (n + m) * 12
     fp32 = fp64 = 0.0
@@ -227,9 +234,12 @@ def kernel_bound(name, b, n, m, pairs=None, zero_share=None):
 
 
 def chamfer_kernel_phase(cu, ch):
-    """K1/K2/K3/K4 against their plain versions, K4 also against K3;
-    returns the record of K4 (K1 and K2 are timed in forward_kernel_phase,
-    K3 in grad_kernel_phase)."""
+    """K1/K2/K3/K4 against their plain versions, K4 also against K3; K4
+    bit-equal to its plain version on the host, whose scatter sums run in
+    ascending j as K4's do (tests/test_torch_ops_chamfer_ties.py pins it to
+    an explicit loop), and timed as K3 is, by its device time. Returns the
+    record of K4 (K1 and K2 are timed in forward_kernel_phase, K3 in
+    grad_kernel_phase)."""
     records = {}
     for b, n, m in ((64, N_POINTS, N_POINTS), (16, 2000, N_POINTS)):
         x1, x2 = tie_clouds(b, n, m, seed=n)
@@ -246,7 +256,7 @@ def chamfer_kernel_phase(cu, ch):
         # j, as K4's do; the card's atomic scatter sums in another order,
         # which K4's x1 * cnt - sc cancellation magnifies (printed)
         p4 = ch.chamfer_grad1_vpu_plain(
-            *(t.cpu() for t in (x1, x2, i1, i2, g1, g2))).cuda()
+            *(t.cpu() for t in (x1, x2, i1, i2, g1, g2)))
         p4_card = ch.chamfer_grad1_vpu_plain(x1, x2, i1, i2, g1, g2)
         torch.cuda.synchronize()
         shape = f"[{b},{n},3]x[{b},{m},3]"
@@ -259,24 +269,31 @@ def chamfer_kernel_phase(cu, ch):
         k3_err = (k3 - p3).abs().max().item()
         if not k3_err <= GRAD_TOL:
             fail(f"K3 differs from the plain version by {k3_err} at {shape}")
-        k4_err = (k4 - p4).abs().max().item()
+        k4_host = torch.equal(k4.cpu(), p4)
         k4_k3 = (k4 - k3).abs().max().item()
         k4_card = (k4 - p4_card).abs().max().item()
+        again = cu.chamfer_grad1_vpu_cuda(x1, x2, i1, i2, g1, g2)
         print(f"kernel check {shape}: K1 values+indices bit-equal, K2 "
-              f"bit-equal, K3 max abs err {k3_err:.3g}, K4 {k4_err:.3g} from its "
-              f"plain version and {k4_k3:.3g} from K3 (tol {GRAD_TOL}); K4 "
+              f"bit-equal, K3 max abs err {k3_err:.3g}; K4 bit-equal to its plain "
+              f"version on the host: {k4_host}, {k4_k3:.3g} from K3 (tol {GRAD_TOL}), "
               f"{k4_card:.3g} from its plain version on the card (atomic order)")
-        if not (k4_err <= GRAD_TOL and k4_k3 <= GRAD_TOL):
-            fail(f"K4 differs from its plain version or K3 at {shape}")
+        if not (k4_host and torch.equal(again, k4)):
+            fail(f"K4 differs from its plain version on the host or its first run at {shape}")
+        if not k4_k3 <= GRAD_TOL:
+            fail(f"K4 differs from K3 by {k4_k3} at {shape}")
         if n == m:  # time at the main-path shape
-            ms = sync_timed(lambda: cu.chamfer_grad1_vpu_cuda(x1, x2, i1, i2, g1, g2), 20)
-            plain_ms = sync_timed(lambda: ch.chamfer_grad1_vpu_plain(
-                x1, x2, i1, i2, g1, g2), 5)
-            records["chamfer_grad1_vpu_cuda"] = {"max_abs_err": k4_err, "ms": ms,
-                                                 "plain_ms": plain_ms, "bnm": (b, n, m)}
-            print(f"  chamfer_grad1_vpu_cuda at {shape}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms")
-        del x1, x2, d1, i1, d2, i2, r1, j1, r2, j2, v1, v2, k3, p3, k4, p4, p4_card
+            args = (x1, x2, i1, i2, g1, g2)
+            ms = device_timed(lambda: cu.chamfer_grad1_vpu_cuda(*args), 50)
+            call_ms = sync_timed(lambda: cu.chamfer_grad1_vpu_cuda(*args), 50)
+            plain_ms = sync_timed(lambda: ch.chamfer_grad1_vpu_plain(*args), 5)
+            bound_ms = kernel_bound("chamfer_grad1_vpu_cuda", b, n, m)[0]
+            records["chamfer_grad1_vpu_cuda"] = {
+                "max_abs_err": 0.0, "ms": ms, "ms_by": DEVICE_TIME, "call_ms": call_ms,
+                "plain_ms": plain_ms, "bnm": (b, n, m)}
+            print(f"  chamfer_grad1_vpu_cuda at {shape}: {ms:.4f} ms on the device, "
+                  f"{call_ms:.4f} ms a call by CUDA events; bound {bound_ms:.4f} ms "
+                  f"({100 * bound_ms / ms:.1f}%); plain {plain_ms:.4f} ms")
+        del x1, x2, d1, i1, d2, i2, r1, j1, r2, j2, v1, v2, k3, p3, k4, p4, p4_card, again
     torch.cuda.synchronize()
     return records
 
@@ -558,20 +575,31 @@ def sweep_errors(got, want):
 
 def emd_kernel_phase(cu_emd, emd):
     """K6/K7 against the plain sweep in every mode; value-only costs
-    bit-equal to grads mode; second runs bit-equal; K7's numerics on the
-    card (``numerics_scan``: expf's underflow threshold, the square root
-    from rsqrt) and the share of (warp, element) pairs it skips at each
-    level; times at the main path's shapes (K6 [50, 1024^2]; K7 [50, 2048^2]
-    and the EMD attack's [24, 2048^2]; mean of 10 kernel calls and 3 plain
-    calls) in its mode, g1 only."""
+    bit-equal to grads mode; second runs bit-equal; K6 bit-equal to K7
+    (the same gradient sums in the same order; the per-row costs added in
+    float64 in different orders, then rounded to float32); the numerics
+    both rest on, checked on the card (``numerics_scan``: expf's underflow
+    threshold, the square root from rsqrt); times at the main path's shapes,
+    each sweep at the EMD attack's 24 pairs and the trainer's 50 (K6 and K7
+    at 1024^2, K7 at 2048^2; mean of 10 kernel calls and 3 plain calls) in
+    the attack's mode, g1 only, beside its bound and the share of (warp,
+    element) pairs K7 skips at each level; K6's cluster and how many the
+    card holds at once."""
     scan = cu_emd.numerics_scan(torch.device("cuda"))
-    print(f"kernel check K7's numerics on the card: {scan}")
+    print(f"kernel check the EMD sweeps' numerics on the card: {scan}")
     if (scan["expf_mismatches"] or scan["sqrt_mismatches"]
             or scan["most_negative_positive"] != cu_emd.EXP_UNDERFLOW):
-        fail(f"K7's numerics do not hold on this card: {scan}")
+        fail(f"the EMD sweeps' numerics do not hold on this card: {scan}")
+    for n, m in ((1024, 1024), (1024, 512), (500, 1000), (128, 128)):
+        for flags in ((True, False), (True, True)):
+            blocks, clusters = cu_emd.block_clusters(n, m, *flags)
+            print(f"  emd_sweep_block_cuda at {n} x {m} points, (g1, g2) {flags}: "
+                  f"clusters of {blocks} blocks, {clusters} resident at once "
+                  "(cudaOccupancyMaxActiveClusters)")
     kernels = {"K6": cu_emd.emd_sweep_block_cuda, "K7": cu_emd.emd_sweep_tiled_cuda}
     records = {}
     for b, n, m, names in ((8, 1024, 512, "K6 K7"), (8, 500, 1000, "K6 K7"),
+                           (EMD_ATTACK_PAIRS, 1024, 1024, "K6 K7"),
                            (50, 1024, 1024, "K6 K7"),
                            (EMD_ATTACK_PAIRS, N_POINTS, N_POINTS, "K7"),
                            (50, N_POINTS, N_POINTS, "K7")):
@@ -604,36 +632,37 @@ def emd_kernel_phase(cu_emd, emd):
             print(f"kernel check {name} {shape}: cost rel {worst[0]:.3g} (tol "
                   f"{EMD_COST_RTOL}), grads {worst[1]:.3g} of max|g| (tol "
                   f"{EMD_GRAD_REL}), value-only cost bit-equal, second run bit-equal")
-            if not (b in (50, EMD_ATTACK_PAIRS) and n == (1024 if name == "K6" else N_POINTS)):
+            if not (b in (50, EMD_ATTACK_PAIRS) and n == m):
                 continue
             wrapper = fn.__name__
             ms = sync_timed(lambda: fn(x, y, emd._LEVELS, True, False), 10)
-            record = {"max_abs_err": worst[2], "ms": ms, "bnm": (b, n, m)}
-            note = ""
+            record = {"max_abs_err": worst[2], "ms": ms, "bnm": (b, n, m),
+                      "zero_share": zero_shares(emd, cu_emd, x, y)}
+            note = (f"; pairs whose kernel value is +0: "
+                    f"{[round(z, 4) for z in record['zero_share']]}")
             if name == "K7":
-                record["zero_share"] = zero_shares(emd, cu_emd, x, y)
                 counts = torch.zeros(len(emd._LEVELS), 3, dtype=torch.int64, device="cuda")
                 fn(x, y, emd._LEVELS, True, False, skip_counts=counts)
                 pairs = torch.tensor([b * -(-m // 32) * n, b * -(-n // 32) * m,
                                       b * -(-n // 32) * m], dtype=torch.float64)
                 skipped = (counts.cpu().double() / pairs).numpy().round(4).tolist()
-                note = (f"; (warp, element) pairs skipped by level {emd._LEVELS} "
-                        f"(column, row closing, row opening sweeps): {skipped}; pairs "
-                        f"whose kernel value is +0: {[round(z, 4) for z in record['zero_share']]}")
+                note += (f"; (warp, element) pairs skipped by level {emd._LEVELS} "
+                         f"(column, row closing, row opening sweeps): {skipped}")
             bound_ms = kernel_bound(wrapper, b, n, m, zero_share=record.get("zero_share"))[0]
             print(f"  {wrapper} at {shape}, g1 only: kernel {ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%){note}")
-            if b == 50:
+            if b == 50 and (name == "K6" or n == N_POINTS):  # the JSON line's shapes
                 record["plain_ms"] = sync_timed(
                     lambda: emd.emd_sweep_plain(x, y, True, False), 3)
                 print(f"  plain sweep at {shape}, g1 only: {record['plain_ms']:.4f} ms")
                 records[wrapper] = record
         if len(outs) == 2:
             errs = sweep_errors(outs["K6"], outs["K7"])
-            if not (errs[0] <= EMD_COST_RTOL and errs[1] <= EMD_GRAD_REL):
-                fail(f"K6 and K7 disagree at {shape}: {errs}")
+            same = [torch.equal(a, c) for a, c in zip(outs["K6"], outs["K7"])]
             print(f"  K6 vs K7 at {shape}: cost rel {errs[0]:.3g}, grads "
-                  f"{errs[1]:.3g} of max|g|")
+                  f"{errs[1]:.3g} of max|g|; bit-equal (cost, g1, g2): {same}")
+            if not all(same):
+                fail(f"K6 and K7 disagree at {shape}: {errs}, bit-equal {same}")
         del x, y, want, outs
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -653,15 +682,18 @@ def zero_shares(emd, cu_emd, x, y):
     return np.mean(shares, axis=0).tolist()
 
 
-def run_stages(stages):
-    """Run (name, main, argv) stages; returns per-stage (seconds, result)."""
+def run_stages(stages, watch=()):
+    """Run (name, main, argv) stages; returns per-stage (seconds, result,
+    launches of each wrapper in ``watch`` during the stage)."""
     out = {}
     for name, fn, argv in stages:
+        before = [w.launches for w in watch]
         t0 = time.time()
         result = fn(argv)
         torch.cuda.synchronize()
-        out[name] = (time.time() - t0, result)
-        print(f"stage {name}: {out[name][0]:.2f} s")
+        made = {w.__name__: w.launches - b for w, b in zip(watch, before)}
+        out[name] = (time.time() - t0, result, made)
+        print(f"stage {name}: {out[name][0]:.2f} s" + (f"; launches {made}" if made else ""))
     return out
 
 
@@ -733,7 +765,7 @@ def check_training(project, ae, epochs, stage, n_train=4 * 51, batch=50):
     """The loss in train_stats.txt falls from the first epoch to the last;
     returns samples/s over the epochs after the first (the trainer's own
     epoch times, synchronised by its per-epoch loss read)."""
-    seconds, stats = stage
+    seconds, stats = stage[:2]
     lines = open(osp.join(project, ae, "train_stats.txt")).read().splitlines()
     rows = [ln.split("\t") for ln in lines if not ln.startswith("On Held_Out")]
     if [int(r[0]) for r in rows] != list(range(1, epochs + 1)):
@@ -824,9 +856,9 @@ def check_attack_effect(project, ae, attack_folder="attack_res"):
 
 def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
                          columns=(0, 1, 2, 3, 4), card_kw=None, ref_kw=None,
-                         ref_device="cpu"):
+                         ref_device="cpu", n_points=N_POINTS):
     """The attack on the card (kernels) against the same attack on the host
-    CPU (plain versions), ``pairs`` x 2048 points at two dist weights;
+    CPU (plain versions), ``pairs`` x ``n_points`` points at two dist weights;
     ``card_kw`` and ``ref_kw`` are attack_batch options of the two runs, and
     ``ref_device`` "cuda" holds two modes against each other on the card.
     Tolerance rtol 1e-3 / atol 1e-5 on the metric ``columns`` (loss_adv,
@@ -838,10 +870,10 @@ def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
     from geometric_adv_tpu_torch.attack.core import attack_batch
 
     rng = np.random.RandomState(7)
-    x = rng.rand(pairs, N_POINTS, 3).astype(np.float32) - 0.5
-    gt = rng.rand(pairs, N_POINTS, 3).astype(np.float32) - 0.5
+    x = rng.rand(pairs, n_points, 3).astype(np.float32) - 0.5
+    gt = rng.rand(pairs, n_points, 3).astype(np.float32) - 0.5
     ref = np.ones(pairs, np.float32)
-    pert0 = (rng.randn(pairs, N_POINTS, 3) * 1e-7).astype(np.float32)
+    pert0 = (rng.randn(pairs, n_points, 3) * 1e-7).astype(np.float32)
     outs = {}
     ref_model = (victim.model if ref_device == "cuda"
                  else copy.deepcopy(victim.model).cpu())
@@ -861,7 +893,7 @@ def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
     rel = err / np.abs(outs["ref"].metrics)
     print(f"{loss} attack {card_kw or ''}, loss_dist_type {dist}, card vs "
           f"{'host' if ref_device == 'cpu' else 'card'} {ref_kw or ''} ({pairs} "
-          f"pairs, {iters[0]} iterations): columns {held} max abs diff "
+          f"pairs of {n_points} points, {iters[0]} iterations): columns {held} max abs diff "
           f"{err[..., held].max():.3g}, max ratio to tolerance "
           f"{(err / lim)[..., held].max():.3g}; relative diff per column "
           f"{np.round(rel.max(axis=(0, 1)), 7).tolist()}")
@@ -870,9 +902,10 @@ def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
              f"its reference run")
 
 
-def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20, **kw):
-    """Attack pair-iterations/s at ``pairs`` pairs of 2048-point clouds (by
-    default the reference's attack batch, 250), with the attack_batch
+def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20,
+                              n_points=N_POINTS, **kw):
+    """Attack pair-iterations/s at ``pairs`` pairs of ``n_points``-point
+    clouds (by default the reference's attack batch, 250), with the attack_batch
     options ``kw``, then a torch.profiler breakdown of 5 iterations: device
     time by kernel, the port's own kernels' share by source file, and the
     device's busy share of the wall clock."""
@@ -881,8 +914,8 @@ def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20, **kw):
     from geometric_adv_tpu_torch.attack.core import attack_batch
 
     rng = np.random.RandomState(11)
-    x = torch.from_numpy(rng.rand(pairs, N_POINTS, 3).astype(np.float32) - 0.5).cuda()
-    gt = torch.from_numpy(rng.rand(pairs, N_POINTS, 3).astype(np.float32) - 0.5).cuda()
+    x = torch.from_numpy(rng.rand(pairs, n_points, 3).astype(np.float32) - 0.5).cuda()
+    gt = torch.from_numpy(rng.rand(pairs, n_points, 3).astype(np.float32) - 0.5).cuda()
     ref = torch.ones(pairs, device="cuda")
     model = victim.model
     with torch.no_grad():
@@ -899,7 +932,7 @@ def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20, **kw):
     torch.cuda.synchronize()
     rate = pairs * iters / (time.time() - t0)
     print(f"{label} attack at {pairs} pairs: {rate:.1f} pair-iters/s "
-          f"({pairs} pairs x {N_POINTS} points, {iters} iterations)")
+          f"({pairs} pairs x {n_points} points, {iters} iterations)")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -1120,20 +1153,39 @@ def main() -> int:
     del victim
     torch.cuda.synchronize()
 
-    # --- EMD at 1024 points (K6) ---------------------------------------------
+    # --- EMD at 1024 points (K6): training, then the stages with the attack --
     from geometric_adv_tpu_torch.cli import tst_ae
 
     ae = "log/autoencoder_emd_1024"
     data = "data/synthetic_1024"
     counts, stages = leg("EMD 1024", counters, lambda: run_stages([
-        train_stage(project, ae, data, 1024, "emd", 2),
-        ("tst_ae", tst_ae.main, ["--project_dir", project, "--device", "cuda",
-                                 "--data_folder", data, "--train_folder", ae]),
-    ]), ("emd_sweep_block_cuda",))
+        train_stage(project, ae, data, 1024, "emd", 2)]), ("emd_sweep_block_cuda",))
     launches = {k: launches[k] + counts[k] for k in launches}
     rates["EMD train samples/s (1024)"] = check_training(project, ae, 2,
                                                          stages["train_ae"])
+    print(f"EMD attack leg at 1024 points: run_attack cut to {EMD_ITERS[0]}/"
+          f"{EMD_ITERS[1]} iterations (the reference runs 500/400)")
+    counts, stages = leg("EMD 1024 attack", counters, lambda: run_stages(
+        attack_stages(project, ae, data, EMD_ITERS),
+        watch=(cu_emd.emd_sweep_block_cuda, cu_emd.emd_sweep_tiled_cuda)),
+        ("emd_sweep_block_cuda",))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    in_attack = stages["run_attack"][2]
+    if in_attack["emd_sweep_block_cuda"] <= 0 or in_attack["emd_sweep_tiled_cuda"]:
+        fail(f"run_attack at 1024 points launched {in_attack}, not K6 alone")
     check_artifacts(project, ae, len(CLASSES), n_test, 1024)
+    victim, _ = check_attack_effect(project, ae)
+    check_attack_vs_host(victim, "emd", 1, (5, 3), dist="pert", n_points=1024)
+    check_attack_vs_host(victim, "emd", 1, (5, 3), columns=(0, 3, 4), n_points=1024)
+    seconds = stages["run_attack"][0]
+    rates["EMD attack pair-iters/s (1024)"] = n_pairs * EMD_ITERS[0] / seconds
+    print(f"EMD attack at 1024 points {rates['EMD attack pair-iters/s (1024)']:.1f} "
+          f"pair-iters/s ({n_pairs} pairs x {EMD_ITERS[0]} iterations in {seconds:.2f} "
+          f"s, stage wall clock; K6 launched {in_attack['emd_sweep_block_cuda']} times)")
+    rates["EMD attack pair-iters/s (1024), 24 pairs in one call"] = (
+        attack_at_reference_batch(victim, "EMD 1024", pairs=EMD_ATTACK_PAIRS, iters=10,
+                                  n_points=1024, ae_loss_type="emd"))
+    del victim
     torch.cuda.synchronize()
 
     # --- chamfer at 1024 points: the fused loss (K5) in every train step ----
@@ -1151,7 +1203,7 @@ def main() -> int:
 
     for k in ("chamfer_grad1_vpu_cuda", "nn_direction_hier_cuda"):
         launches[k] = phase_counts[k]
-    print(f"launches over the six legs (K4, K8: the kernel phase's): {launches}")
+    print(f"launches over the seven legs (K4, K8: the kernel phase's): {launches}")
     print("rates: " + json.dumps(rates))
     kernels = []
     for name, rec in records.items():

@@ -1,4 +1,4 @@
-// Gradient of nn_distance with respect to its first cloud, two kernels.
+// Gradient of nn_distance with respect to its first cloud, in two algebras.
 //
 // Replaces the TPU kernels
 //   geometric_adv_tpu/ops/pallas/chamfer_bwd_kernel.py::chamfer_grad1_pallas
@@ -7,7 +7,8 @@
 //     (_bwd_vpu_kernel, K4)                          -> gat_chamfer_grad1_vpu
 // gat_chamfer_grad1 gives the exact-f32, fixed-order semantics of the TPU
 // pair; gat_chamfer_grad1_vpu keeps K4's own algebra (below). The two round
-// differently and each is held against its own plain version.
+// differently and each is held bit for bit against its own plain version on
+// the host. Both run one kernel, grad1_kernel, templated on the algebra.
 //
 // Contract: xyz1 [b, n, 3], xyz2 [b, m, 3], idx1 [b, n] int32,
 // idx2 [b, m] int32, g1 [b, n], g2 [b, m] (f32 unless noted, contiguous):
@@ -42,6 +43,24 @@
 // the wrapper's host time, ~0.03 ms a call, is longer), where the masked
 // O(n*m) scan it replaced (one thread per i over every j) took 0.047, 0.076
 // and 0.28 ms.
+//
+// K4, the same contract in the TPU kernel's masked-reduction algebra
+// (chamfer_bwd_kernel.py:156-209, combined at :288-294): with w[j] =
+// 2*g2[j],
+//   sc   = sum_{idx2[j] == i} w[j]*x2[j]
+//   cnt  = sum_{idx2[j] == i} w[j]
+//   gath = 0.0f + x2[idx1[i]]      (the TPU's masked gather; 0 for an idx1
+//                                   outside [0, m), which gives no NaN)
+//   out  = (2*g1[i]*(x1[i] - gath) - sc) + x1[i]*cnt
+// x1 is factored out of the scatter term, so x1*cnt - sc cancels where the
+// two are close; its rounding differs from K3's. K4 runs K3's segmented
+// pass with the compacted list carrying (w*x2[j], w) and the peels adding
+// sc and cnt in ascending j from 0.0f, the order of its plain version on
+// the host, to which it is bit-equal, and is split over blocks as K3 is.
+// On the H100 it takes 0.0061, 0.0092 and 0.0206 ms at [24, 64, 250] x
+// 2048^2 (torch.profiler), where its first design, one thread per i over
+// every j with two integer compares per pair (the gather a masked
+// reduction too), took 0.075, 0.143 and 0.550 ms.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -53,36 +72,45 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = kThreads;  // K4: points per staged tile
 constexpr unsigned kFull = 0xffffffffu;
 
-// K3
 constexpr int kWarps = kThreads / 32;
 constexpr int kPer = 8;                  // idx2 entries a thread reads per stage
 constexpr int kStage = kThreads * kPer;  // j per stage
 constexpr int kMaxKeys = 2048;           // points i per block, at most
 
-// Dynamic shared memory of a K3 block that owns `keys` points.
-size_t grad1_smem(int keys) {
-  return kStage * (sizeof(float4) + sizeof(int)) + keys * 8 * sizeof(float) +
+// Running sums a point keeps: K3 the scatter term's three, K4 sc's three
+// and cnt.
+constexpr int running_sums(bool vpu) { return vpu ? 4 : 3; }
+
+// Dynamic shared memory of a block that owns `keys` points: the stage's
+// list and keys, per point x1 and the running sums, the peels' bids.
+size_t grad1_smem(bool vpu, int keys) {
+  return kStage * (sizeof(float4) + sizeof(int)) +
+         keys * (3 + running_sums(vpu) + 2) * sizeof(float) +
          (kPer * kWarps + 1) * sizeof(int);
 }
 
+// kVpu: K4's algebra, else K3's.
+template <bool kVpu>
 __global__ void __launch_bounds__(kThreads)
 grad1_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
              const int* __restrict__ idx1, const int* __restrict__ idx2,
              const float* __restrict__ g1, const float* __restrict__ g2,
              float* __restrict__ out, int n, int m, int keys, int blocks_per_cloud) {
   extern __shared__ float4 smem[];
-  float4* list = smem;  // [kStage]: the stage's j in range: x2[j], 2*g2[j] in .w
+  // [kStage]: the stage's j in range: K3 x2[j] and 2*g2[j] in .w; K4
+  // w[j]*x2[j] and w[j] in .w
+  float4* list = smem;
   int* list_key = reinterpret_cast<int*>(list + kStage);    // [kStage]: idx2[j] - k0
   float* kx = reinterpret_cast<float*>(list_key + kStage);  // [keys] each: x1[i]
   float* ky = kx + keys;
   float* kz = ky + keys;
-  float* sx = kz + keys;  // [keys] each: the running sums
+  float* sx = kz + keys;  // [keys] each: the running sums (K4: sc, then cnt)
   float* sy = sx + keys;
   float* sz = sy + keys;
-  int* bid = reinterpret_cast<int*>(sz + keys);  // [2][keys]
+  float* sc = sz + keys;  // K4's cnt: [keys] where kVpu, else empty
+  int* bid = reinterpret_cast<int*>(sc + (kVpu ? keys : 0));  // [2][keys]
   int* offs = bid + 2 * keys;  // [kPer * kWarps + 1]: warp counts, offsets, total
 
   const int tid = threadIdx.x;
@@ -100,6 +128,7 @@ grad1_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
     ky[k] = xyz1[(row1 + k) * 3 + 1];
     kz[k] = xyz1[(row1 + k) * 3 + 2];
     sx[k] = sy[k] = sz[k] = 0.f;
+    if (kVpu) sc[k] = 0.f;
     bid[k] = bid[keys + k] = INT_MAX;
   }
   for (int j0 = 0; j0 < m; j0 += kStage) {
@@ -134,8 +163,11 @@ grad1_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
       if ((in[r] >> lane) & 1u) {
         const int pos = offs[r * kWarps + warp] + __popc(in[r] & ((1u << lane) - 1u));
         const int j = j0 + r * kThreads + tid;
-        list[pos] = make_float4(x2[3 * j], x2[3 * j + 1], x2[3 * j + 2],
-                                __fmul_rn(2.f, g2[row2 + j]));
+        const float ax = x2[3 * j], ay = x2[3 * j + 1], az = x2[3 * j + 2];
+        const float w = __fmul_rn(2.f, g2[row2 + j]);
+        list[pos] = kVpu ? make_float4(__fmul_rn(ax, w), __fmul_rn(ay, w),
+                                       __fmul_rn(az, w), w)
+                         : make_float4(ax, ay, az, w);
         list_key[pos] = key[r];
       }
     }
@@ -147,120 +179,59 @@ grad1_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
       gat_segment_round(slot, bid, keys, [&](int s, unsigned grp) {
         const float px = kx[s], py = ky[s], pz = kz[s];
         float ax = sx[s], ay = sy[s], az = sz[s];
+        float ac = kVpu ? sc[s] : 0.f;
         for (unsigned g = grp; g != 0u; g &= g - 1u) {
           const float4 p = list[r0 + warp * 32 + __ffs(g) - 1];
-          ax = __fadd_rn(ax, __fmul_rn(p.w, __fsub_rn(p.x, px)));
-          ay = __fadd_rn(ay, __fmul_rn(p.w, __fsub_rn(p.y, py)));
-          az = __fadd_rn(az, __fmul_rn(p.w, __fsub_rn(p.z, pz)));
+          if (kVpu) {
+            ax = __fadd_rn(ax, p.x);
+            ay = __fadd_rn(ay, p.y);
+            az = __fadd_rn(az, p.z);
+            ac = __fadd_rn(ac, p.w);
+          } else {
+            ax = __fadd_rn(ax, __fmul_rn(p.w, __fsub_rn(p.x, px)));
+            ay = __fadd_rn(ay, __fmul_rn(p.w, __fsub_rn(p.y, py)));
+            az = __fadd_rn(az, __fmul_rn(p.w, __fsub_rn(p.z, pz)));
+          }
         }
         sx[s] = ax;
         sy[s] = ay;
         sz[s] = az;
+        if (kVpu) sc[s] = ac;
       });
     }
   }
   __syncthreads();
   for (int k = tid; k < nk; k += kThreads) {
-    // the gather term 2*g1*(x1 - x2[idx1]), less the scatter term
     const size_t i = row1 + k;
     const int j = idx1[i];
+    const bool in = j >= 0 && j < m;
     const float g = __fmul_rn(2.f, g1[i]);
-    float tx = CUDART_NAN_F, ty = CUDART_NAN_F, tz = CUDART_NAN_F;
-    if (j >= 0 && j < m) {
-      tx = __fmul_rn(g, __fsub_rn(kx[k], x2[3 * j]));
-      ty = __fmul_rn(g, __fsub_rn(ky[k], x2[3 * j + 1]));
-      tz = __fmul_rn(g, __fsub_rn(kz[k], x2[3 * j + 2]));
-    }
-    out[i * 3] = __fsub_rn(tx, sx[k]);
-    out[i * 3 + 1] = __fsub_rn(ty, sy[k]);
-    out[i * 3 + 2] = __fsub_rn(tz, sz[k]);
-  }
-}
-
-// K4: the same contract in the TPU kernel's masked-reduction algebra
-// (chamfer_bwd_kernel.py:156-209, combined at :288-294): with w[j] =
-// 2*g2[j], one thread per point i accumulates over every j
-//   gath = sum_{j == idx1[i]} x2[j]      (the gather as a masked sum)
-//   sc   = sum_{idx2[j] == i} w[j]*x2[j]
-//   cnt  = sum_{idx2[j] == i} w[j]
-// and writes (2*g1[i]*(x1[i] - gath) - sc) + x1[i]*cnt. x1 is factored out
-// of the scatter term, so x1*cnt - sc cancels where the two are close; the
-// error is measured against K4's plain version (PERF.md). The staged tiles
-// carry (x2[j], w[j]) and (w[j]*x2[j], idx2[j]); sums run in ascending j.
-// An idx1 entry outside [0, m) matches no j and gathers 0.
-// What bounds it: two integer compares per pair over all n*m pairs (the
-// gather is a masked reduction too), ~1/3 of K1's ALU work per pair.
-__global__ void __launch_bounds__(kThreads)
-grad1_vpu_kernel(const float* __restrict__ xyz1, const float* __restrict__ xyz2,
-                 const int* __restrict__ idx1, const int* __restrict__ idx2,
-                 const float* __restrict__ g1, const float* __restrict__ g2,
-                 float* __restrict__ out, int n, int m, int blocks_per_cloud) {
-  __shared__ float4 tile_pt[kTile];  // x2[j] in xyz, w[j] in w
-  __shared__ float4 tile_sc[kTile];  // w[j]*x2[j] in xyz, idx2[j]'s bits in w
-
-  const int cloud = blockIdx.x / blocks_per_cloud;
-  const int i = (blockIdx.x % blocks_per_cloud) * kThreads + threadIdx.x;
-  const bool active = i < n;
-  const size_t row1 = static_cast<size_t>(cloud) * n;
-  const size_t row2 = static_cast<size_t>(cloud) * m;
-  const float* x2 = xyz2 + row2 * 3;
-
-  float px = 0.f, py = 0.f, pz = 0.f;
-  int k = -1;
-  if (active) {
-    px = xyz1[(row1 + i) * 3];
-    py = xyz1[(row1 + i) * 3 + 1];
-    pz = xyz1[(row1 + i) * 3 + 2];
-    k = idx1[row1 + i];
-  }
-
-  float gx = 0.f, gy = 0.f, gz = 0.f;  // gath
-  float sx = 0.f, sy = 0.f, sz = 0.f;  // sc
-  float cnt = 0.f;
-  for (int base = 0; base < m; base += kTile) {
-    const int count = min(kTile, m - base);
-    __syncthreads();
-    if (threadIdx.x < count) {
-      const int j = base + threadIdx.x;
-      const float w = __fmul_rn(2.f, g2[row2 + j]);
-      const float ax = x2[3 * j], ay = x2[3 * j + 1], az = x2[3 * j + 2];
-      tile_pt[threadIdx.x] = make_float4(ax, ay, az, w);
-      tile_sc[threadIdx.x] = make_float4(__fmul_rn(ax, w), __fmul_rn(ay, w),
-                                         __fmul_rn(az, w),
-                                         __int_as_float(idx2[row2 + j]));
-    }
-    __syncthreads();
-    if (active) {
-#pragma unroll 8
-      for (int j = 0; j < count; ++j) {
-        if (base + j == k) {
-          const float4 p = tile_pt[j];
-          gx = __fadd_rn(gx, p.x);
-          gy = __fadd_rn(gy, p.y);
-          gz = __fadd_rn(gz, p.z);
-        }
-        const float4 s = tile_sc[j];
-        if (__float_as_int(s.w) == i) {
-          sx = __fadd_rn(sx, s.x);
-          sy = __fadd_rn(sy, s.y);
-          sz = __fadd_rn(sz, s.z);
-          cnt = __fadd_rn(cnt, tile_pt[j].w);
-        }
+    if (kVpu) {  // (2*g1*(x1 - gath) - sc) + x1*cnt
+      const float gx = in ? __fadd_rn(0.f, x2[3 * j]) : 0.f;
+      const float gy = in ? __fadd_rn(0.f, x2[3 * j + 1]) : 0.f;
+      const float gz = in ? __fadd_rn(0.f, x2[3 * j + 2]) : 0.f;
+      const float cnt = sc[k];
+      out[i * 3] = __fadd_rn(__fsub_rn(__fmul_rn(g, __fsub_rn(kx[k], gx)), sx[k]),
+                             __fmul_rn(kx[k], cnt));
+      out[i * 3 + 1] = __fadd_rn(__fsub_rn(__fmul_rn(g, __fsub_rn(ky[k], gy)), sy[k]),
+                                 __fmul_rn(ky[k], cnt));
+      out[i * 3 + 2] = __fadd_rn(__fsub_rn(__fmul_rn(g, __fsub_rn(kz[k], gz)), sz[k]),
+                                 __fmul_rn(kz[k], cnt));
+    } else {  // the gather term 2*g1*(x1 - x2[idx1]), less the scatter term
+      float tx = CUDART_NAN_F, ty = CUDART_NAN_F, tz = CUDART_NAN_F;
+      if (in) {
+        tx = __fmul_rn(g, __fsub_rn(kx[k], x2[3 * j]));
+        ty = __fmul_rn(g, __fsub_rn(ky[k], x2[3 * j + 1]));
+        tz = __fmul_rn(g, __fsub_rn(kz[k], x2[3 * j + 2]));
       }
+      out[i * 3] = __fsub_rn(tx, sx[k]);
+      out[i * 3 + 1] = __fsub_rn(ty, sy[k]);
+      out[i * 3 + 2] = __fsub_rn(tz, sz[k]);
     }
-  }
-  if (active) {
-    const float g = __fmul_rn(2.f, g1[row1 + i]);
-    out[(row1 + i) * 3] =
-        __fadd_rn(__fsub_rn(__fmul_rn(g, __fsub_rn(px, gx)), sx), __fmul_rn(px, cnt));
-    out[(row1 + i) * 3 + 1] =
-        __fadd_rn(__fsub_rn(__fmul_rn(g, __fsub_rn(py, gy)), sy), __fmul_rn(py, cnt));
-    out[(row1 + i) * 3 + 2] =
-        __fadd_rn(__fsub_rn(__fmul_rn(g, __fsub_rn(pz, gz)), sz), __fmul_rn(pz, cnt));
   }
 }
 
-// K3's points per block: one block per cloud where the clouds alone give
+// Points per block (K3 and K4): one block per cloud where the clouds alone give
 // every SM a block (more would take a second wave); else enough blocks to
 // give every SM kBlocksPerSm, rounded up to whole warps, at least kMinKeys.
 constexpr int kBlocksPerSm = 4;
@@ -275,6 +246,23 @@ int grad1_keys(int b, int n) {
   return keys < kMinKeys ? kMinKeys : (keys > kMaxKeys ? kMaxKeys : keys);
 }
 
+template <bool kVpu>
+int launch_grad1(const float* xyz1, const float* xyz2, const int* idx1, const int* idx2,
+                 const float* g1, const float* g2, float* out, int b, int n, int m,
+                 void* stream) {
+  static const cudaError_t ready = cudaFuncSetAttribute(
+      grad1_kernel<kVpu>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(grad1_smem(kVpu, kMaxKeys)));
+  if (ready != cudaSuccess) return static_cast<int>(ready);
+  const int keys = grad1_keys(b, n);
+  const int blocks_per_cloud = (n + keys - 1) / keys;
+  const dim3 grid(static_cast<unsigned>(b) * blocks_per_cloud);
+  grad1_kernel<kVpu><<<grid, kThreads, grad1_smem(kVpu, keys),
+                       static_cast<cudaStream_t>(stream)>>>(
+      xyz1, xyz2, idx1, idx2, g1, g2, out, n, m, keys, blocks_per_cloud);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Both entries launch on `stream` and return a cudaError_t (0 = launched).
@@ -282,25 +270,12 @@ extern "C" int gat_chamfer_grad1(const float* xyz1, const float* xyz2,
                                  const int* idx1, const int* idx2,
                                  const float* g1, const float* g2, float* out,
                                  int b, int n, int m, void* stream) {
-  static const cudaError_t ready = cudaFuncSetAttribute(
-      grad1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(grad1_smem(kMaxKeys)));
-  if (ready != cudaSuccess) return static_cast<int>(ready);
-  const int keys = grad1_keys(b, n);
-  const int blocks_per_cloud = (n + keys - 1) / keys;
-  const dim3 grid(static_cast<unsigned>(b) * blocks_per_cloud);
-  grad1_kernel<<<grid, kThreads, grad1_smem(keys), static_cast<cudaStream_t>(stream)>>>(
-      xyz1, xyz2, idx1, idx2, g1, g2, out, n, m, keys, blocks_per_cloud);
-  return static_cast<int>(cudaGetLastError());
+  return launch_grad1<false>(xyz1, xyz2, idx1, idx2, g1, g2, out, b, n, m, stream);
 }
 
 extern "C" int gat_chamfer_grad1_vpu(const float* xyz1, const float* xyz2,
                                      const int* idx1, const int* idx2,
                                      const float* g1, const float* g2, float* out,
                                      int b, int n, int m, void* stream) {
-  const int blocks_per_cloud = (n + kThreads - 1) / kThreads;
-  const dim3 grid(static_cast<unsigned>(b) * blocks_per_cloud);
-  grad1_vpu_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      xyz1, xyz2, idx1, idx2, g1, g2, out, n, m, blocks_per_cloud);
-  return static_cast<int>(cudaGetLastError());
+  return launch_grad1<true>(xyz1, xyz2, idx1, idx2, g1, g2, out, b, n, m, stream);
 }

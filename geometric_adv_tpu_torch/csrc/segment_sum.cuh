@@ -1,5 +1,5 @@
 // The ordered segmented sum shared by chamfer_payloads.cu (K5's snn1 and
-// cnt1) and chamfer_grad.cu (K3's scatter term).
+// cnt1) and chamfer_grad.cu (K3's scatter term, K4's sc and cnt).
 //
 // Entries, taken in ascending order, each carry a key (a slot of the block's
 // running sums). A key's entries must be added to its running sum in

@@ -9,8 +9,13 @@ plain version's: float32 planes and state, float64 plane sums and state
 updates (see ``csrc/emd_sweep.cu``). The shared library
 is built and loaded by ``ops/cuda/build.py``; each wrapper launches on the
 current CUDA stream without synchronising and adds one to its ``launches``
-count per sweep. K7 skips, exactly, the terms whose kernel value
-``exp(level * d2)`` is +0 (``EXP_UNDERFLOW``). The plain PyTorch version is
+count per sweep. K6 runs each cloud pair on a thread-block cluster of
+``ceil(max(n, m) / 128)`` blocks, all rounds in one launch; K7 a column and
+a row launch per round. Both run the same group loops and skip, exactly,
+the terms whose kernel value ``exp(level * d2)`` is +0 (``EXP_UNDERFLOW``),
+so their gradients agree bit for bit; their costs add the per-row costs in
+float64 in different orders before rounding to float32, and agreed bit for
+bit too on every input checked on the card. The plain PyTorch version is
 ``geometric_adv_tpu_torch/ops/emd.py::emd_sweep_plain``.
 """
 
@@ -22,11 +27,11 @@ import torch
 
 from geometric_adv_tpu_torch.ops.cuda import build
 
-BLOCK_MAX_POINTS = 1024  # K6 keeps one cloud pair in one block
+BLOCK_MAX_POINTS = 1024  # K6 keeps one cloud pair in one cluster of <= 8 blocks
 # The smallest float32 t with exp(t) > 0: below it exp gives exactly +0 (on
 # the host, tests/test_torch_ops_emd_skip.py; with the kernels' expf on the
-# card, numerics_scan). K7 skips the terms whose level * d2 is below it
-# (kExpUnderflow in csrc/emd_sweep.cu).
+# card, numerics_scan). K6 and K7 skip the terms whose level * d2 is below
+# it (kExpUnderflow in csrc/emd_sweep.cu).
 EXP_UNDERFLOW = float.fromhex("-0x1.9fe368p+6")  # -103.97207641601562
 
 
@@ -54,7 +59,8 @@ def _levels(levels) -> tuple[ctypes.Array, int]:
 @build.counted
 def emd_sweep_block_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor, levels,
                          want_g1: bool, want_g2: bool):
-    """K6: one block per cloud pair, all rounds in one launch; n, m <= 1024."""
+    """K6: one thread-block cluster per cloud pair, all rounds in one
+    launch; n, m <= 1024."""
     b, n, m = build.cloud_sizes(xyz1, xyz2)
     if max(n, m) > BLOCK_MAX_POINTS:
         raise ValueError(f"emd_sweep_block_cuda takes n, m <= {BLOCK_MAX_POINTS}, "
@@ -111,14 +117,25 @@ def emd_sweep_tiled_cuda(xyz1: torch.Tensor, xyz2: torch.Tensor, levels,
     return cost, g1, g2
 
 
+def block_clusters(n: int, m: int, want_g1: bool, want_g2: bool) -> tuple[int, int]:
+    """K6's cluster at n x m points: (its blocks, how many such clusters the
+    card holds at once, from ``cudaOccupancyMaxActiveClusters``)."""
+    lib = build.load_library()
+    out = (ctypes.c_int * 2)()
+    build.check_launch(lib.gat_emd_sweep_block_clusters(n, m, int(want_g1), int(want_g2),
+                                                        ctypes.addressof(out)),
+                       "emd_sweep_block_clusters")
+    return out[0], out[1]
+
+
 def numerics_scan(device) -> dict:
-    """Check on the card the numerics K7 rests on (``numerics_scan`` in
+    """Check on the card the numerics K6 and K7 rest on (``numerics_scan`` in
     ``csrc/emd_sweep.cu``): over every float32 t in [-110, -100],
     ``expf_mismatches`` counts the t where "expf(t) is +0" differs from
     "t < EXP_UNDERFLOW", beside the most negative t with expf(t) > 0 and the
     least negative t with expf(t) == +0; over every float32 x in
-    [1e-20, FLT_MAX], ``sqrt_mismatches`` counts the x where K7's square
-    root from the gradient's rsqrt differs from sqrtf in any bit."""
+    [1e-20, FLT_MAX], ``sqrt_mismatches`` counts the x where the sweeps'
+    square root from the gradient's rsqrt differs from sqrtf in any bit."""
     lib = build.load_library()
     # unsigned on the card; -1 is 0xffffffff
     out = torch.tensor([0, 0, -1, 0], dtype=torch.int32, device=device)

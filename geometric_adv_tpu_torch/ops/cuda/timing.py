@@ -1,5 +1,5 @@
-"""Timers for the hand-written kernels, and a command that times K3, K5 and
-K7 alone and keeps their outputs.
+"""Timers for the hand-written kernels, and a command that times K3-K7 alone
+and keeps their outputs.
 
 ``sync_timed`` and ``device_timed`` serve ``chip_smoke.py`` too. The
 command, on one card:
@@ -9,16 +9,17 @@ command, on one card:
 
 times, on inputs from fixed numpy seeds (uniform clouds in [-0.5, 0.5)^3):
 
-- K3 ``chamfer_grad1_cuda`` at [24, 64, 250] x 2048^2, with K1's argmins
-  and uniform weights, 50 calls;
+- K3 ``chamfer_grad1_cuda`` and K4 ``chamfer_grad1_vpu_cuda`` at
+  [24, 64, 250] x 2048^2, with K1's argmins and uniform weights, 50 calls;
 - K5 ``chamfer_loss_payloads_cuda`` at [64] x 2048^2 and [50] x 1024^2,
   50 calls;
-- K7 ``emd_sweep_tiled_cuda`` at [24, 50] x 2048^2 in g1 mode (the EMD
-  attack's call), 10 calls.
+- K6 ``emd_sweep_block_cuda`` at [24, 50] x 1024^2 and K7
+  ``emd_sweep_tiled_cuda`` at [24, 50] x 1024^2 and 2048^2, in g1 mode (the
+  EMD attack's call), 10 calls.
 
 Each time is given twice, per call after a warm-up: ``ms`` from CUDA events
 around the calls, which counts the wrapper's host time where that is longer
-than the kernel's (K3's), and ``device_ms``, the kernels' own time in a
+than the kernel's (K3's, K4's), and ``device_ms``, the kernels' own time in a
 torch.profiler trace of the same calls. Each result is one JSON line on
 standard output; the outputs go to ``DIR/NAME.pt`` (default
 ``build/kernel_times`` in the checkout), and ``--compare`` says whether two
@@ -41,7 +42,9 @@ import torch
 N = 2048
 K3_BATCHES = (24, 64, 250)
 K5_SHAPES = ((64, N), (50, 1024))
-K7_BATCHES = (24, 50)
+EMD_BATCHES = (24, 50)
+# (kernel, points): K6 at 1024, K7 at 1024 (the same function as K6) and 2048
+EMD_SWEEPS = (("K6", 1024), ("K7", 1024), ("K7", N))
 
 
 def sync_timed(fn, reps: int) -> float:
@@ -87,7 +90,7 @@ def _emit(**record):
 
 
 def time_kernels(label: str) -> dict:
-    """Time K3, K5 and K7 (one JSON line each); returns their outputs."""
+    """Time K3-K7 (one JSON line each); returns their outputs."""
     from geometric_adv_tpu_torch.ops import emd
     from geometric_adv_tpu_torch.ops.cuda import chamfer as cu
     from geometric_adv_tpu_torch.ops.cuda import emd as cu_emd
@@ -103,18 +106,21 @@ def time_kernels(label: str) -> dict:
         g1, g2 = (torch.from_numpy(rng.rand(b, N).astype(np.float32)).cuda()
                   for _ in range(2))
         args = (x1, x2, i1, i2, g1, g2)
-        outputs[f"K3 [{b}]"] = [cu.chamfer_grad1_cuda(*args).cpu()]
-        emit_times(lambda: cu.chamfer_grad1_cuda(*args), 50, kernel="K3", b=b)
+        for name, fn in (("K3", cu.chamfer_grad1_cuda), ("K4", cu.chamfer_grad1_vpu_cuda)):
+            outputs[f"{name} [{b}]"] = [fn(*args).cpu()]
+            emit_times(lambda: fn(*args), 50, kernel=name, b=b)
     for b, n in K5_SHAPES:
         x1, x2 = _clouds(b, n, seed=200 + b)
         outputs[f"K5 [{b}, {n}]"] = [t.cpu() for t in cu.chamfer_loss_payloads_cuda(x1, x2)]
         emit_times(lambda: cu.chamfer_loss_payloads_cuda(x1, x2), 50, kernel="K5", b=b, n=n)
-    for b in K7_BATCHES:
-        x, y = _clouds(b, N, seed=100 + b)
-        cost, g1, _ = cu_emd.emd_sweep_tiled_cuda(x, y, emd._LEVELS, True, False)
-        outputs[f"K7 [{b}]"] = [cost.cpu(), g1.cpu()]
-        emit_times(lambda: cu_emd.emd_sweep_tiled_cuda(x, y, emd._LEVELS, True, False), 10,
-                   kernel="K7", b=b)
+    sweeps = {"K6": cu_emd.emd_sweep_block_cuda, "K7": cu_emd.emd_sweep_tiled_cuda}
+    for name, n in EMD_SWEEPS:
+        for b in EMD_BATCHES:
+            x, y = _clouds(b, n, seed=100 + b + (n != N))
+            fn = sweeps[name]
+            cost, g1, _ = fn(x, y, emd._LEVELS, True, False)
+            outputs[f"{name} [{b}]" + ("" if n == N else f" x {n}")] = [cost.cpu(), g1.cpu()]
+            emit_times(lambda: fn(x, y, emd._LEVELS, True, False), 10, kernel=name, b=b, n=n)
     return outputs
 
 

@@ -145,15 +145,14 @@ def test_k5_payloads_on_long_segments(cuda, b, n, m):
         assert all(torch.equal(g.cpu(), w) for g, w in zip(got, host))
 
 
-@pytest.mark.parametrize("kind,b,n,m", [("ties", 24, 2048, 2048), ("ties", 2, 2500, 2048),
-                                        ("clustered", 2, 300, 2500),
-                                        ("clustered", 3, 2048, 600)])
-def test_k3_bit_equal_to_the_ascending_j_sum(cuda, kind, b, n, m):
-    """K3 against its plain version on the host, whose scatter sums run in
-    ascending j as K3's do (tests/test_torch_ops_chamfer_ties.py pins it to
-    an explicit loop): bit-equal on tie clouds and on x2 clustered on three
-    x1 points (segments of hundreds of j, most segments empty), and a
-    second run bit-equal to the first."""
+GRAD1_CASES = [("ties", 24, 2048, 2048), ("ties", 2, 2500, 2048),
+               ("clustered", 2, 300, 2500), ("clustered", 3, 2048, 600)]
+
+
+def grad1_inputs(kind, b, n, m):
+    """Tie clouds, or x2 clustered on three x1 points (segments of hundreds
+    of j, most segments empty), with uniform weights and the plain argmins,
+    on the host."""
     rng = np.random.RandomState(b * n + m)
     if kind == "ties":
         a, c = straddling_ties(b, n, m, seed=n + m)
@@ -164,11 +163,35 @@ def test_k3_bit_equal_to_the_ascending_j_sum(cuda, kind, b, n, m):
     g1 = torch.from_numpy(rng.rand(b, n).astype(np.float32))
     g2 = torch.from_numpy(rng.rand(b, m).astype(np.float32))
     _, i1, _, i2 = ch.nn_distance_plain(a, c)
-    host = ch.chamfer_grad1_plain(a, c, i1, i2, g1, g2)
-    args = [t.to(cuda) for t in (a, c, i1, i2, g1, g2)]
+    return a, c, i1, i2, g1, g2
+
+
+@pytest.mark.parametrize("kind,b,n,m", GRAD1_CASES)
+def test_k3_bit_equal_to_the_ascending_j_sum(cuda, kind, b, n, m):
+    """K3 against its plain version on the host, whose scatter sums run in
+    ascending j as K3's do (tests/test_torch_ops_chamfer_ties.py pins it to
+    an explicit loop): bit-equal on tie clouds and on x2 clustered on three
+    x1 points, and a second run bit-equal to the first."""
+    host_args = grad1_inputs(kind, b, n, m)
+    host = ch.chamfer_grad1_plain(*host_args)
+    args = [t.to(cuda) for t in host_args]
     first = cu.chamfer_grad1_cuda(*args)
     assert torch.equal(first.cpu(), host)
     assert torch.equal(cu.chamfer_grad1_cuda(*args), first)
+
+
+@pytest.mark.parametrize("kind,b,n,m", GRAD1_CASES)
+def test_k4_bit_equal_to_the_ascending_j_sum(cuda, kind, b, n, m):
+    """K4, K3's segmented pass in K4's algebra, against its plain version
+    on the host (pinned to an explicit ascending-j loop in
+    tests/test_torch_ops_chamfer_ties.py): bit-equal on the same clouds as
+    K3, and a second run bit-equal to the first."""
+    host_args = grad1_inputs(kind, b, n, m)
+    host = ch.chamfer_grad1_vpu_plain(*host_args)
+    args = [t.to(cuda) for t in host_args]
+    first = cu.chamfer_grad1_vpu_cuda(*args)
+    assert torch.equal(first.cpu(), host)
+    assert torch.equal(cu.chamfer_grad1_vpu_cuda(*args), first)
 
 
 def unit_clouds(b, n, m, seed):
@@ -201,10 +224,9 @@ def test_k4_k5_k8_match_plain_versions(cuda, b, n, m):
     k4 = cu.chamfer_grad1_vpu_cuda(*grad_args)
     k3 = cu.chamfer_grad1_cuda(*grad_args)
     # the plain version on the host sums the scatter terms in ascending j,
-    # as K4 does; on the card its atomic scatter sums in another order, and
-    # the x1 * cnt - sc cancellation turns that into up to ~3e-6 at n << m
+    # as K4 does (on the card its atomic scatter sums in another order)
     p4 = ch.chamfer_grad1_vpu_plain(*(t.cpu() for t in grad_args))
-    assert (k4.cpu() - p4).abs().max().item() <= GRAD_TOL
+    assert torch.equal(k4.cpu(), p4)
     assert (k4 - k3).abs().max().item() <= GRAD_TOL
 
     cu.reset_launch_counts()
@@ -346,6 +368,32 @@ def test_emd_kernels_match_plain_version(cuda, kernel, b, n, m):
         assert (part[1] is None) != flags[0] and (part[2] is None) != flags[1]
         assert torch.equal(part[0], full[0])  # the cost is mode-independent
         assert_sweep_close(part, want)
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1, 5), (2, 127, 129), (2, 128, 128), (2, 129, 1024),
+                                   (4, 1000, 513), (8, 1024, 512), (24, 1024, 1024)])
+def test_k6_at_the_cluster_split_edges(cuda, b, n, m):
+    """K6 splits a pair over ceil(max(n, m) / 128) blocks: one block, two,
+    eight with rows but no columns (and the reverse), at the EMD attack's
+    [24, 1024^2]. Against the plain sweep in all four modes, value-only
+    cost bit-equal; a second run bit-equal to the first; every output
+    bit-equal to K7's (the same gradient sums in the same order; the
+    per-row costs added in float64 in another order, then rounded)."""
+    a, c = (t.to(cuda) for t in emd_clouds(b, n, m, seed=b + n + m))
+    want = emd.emd_sweep_plain(a, c, True, True)
+    full = cu_emd.emd_sweep_block_cuda(a, c, emd._LEVELS, True, True)
+    for flags in ((True, True), (True, False), (False, True), (False, False)):
+        first = cu_emd.emd_sweep_block_cuda(a, c, emd._LEVELS, *flags)
+        again = cu_emd.emd_sweep_block_cuda(a, c, emd._LEVELS, *flags)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], full[0])
+        assert_sweep_close(first, want)
+        for f, g in zip(first, again):
+            assert (f is None) == (g is None)
+            if f is not None:
+                assert torch.equal(f, g)
+    tiled = cu_emd.emd_sweep_tiled_cuda(a, c, emd._LEVELS, True, True)
+    assert all(torch.equal(f, g) for f, g in zip(full, tiled))
 
 
 def test_emd_autograd_on_card_goes_through_the_kernels(cuda):

@@ -194,20 +194,26 @@ def test_frozen_payloads_match_jax_and_a_loop(b, n, m):
         np.testing.assert_array_equal(got[4][bi], cnt)
 
 
-@pytest.mark.parametrize("n,m,unit", [(70, 50, False), (128, 512, True)])
+@pytest.mark.parametrize("n,m,unit", [(70, 50, False), (128, 512, True),
+                                      (2048, 2048, "ties")])
 def test_grad1_vpu_plain_matches_jax_kernel_and_k3(n, m, unit):
     """K4 factors x1 out of the scatter term, so x1*cnt - sc cancels: the
     error grows with |x1| * cnt. At (45, 300) with standard-normal clouds
     (cnt up to 17) the plain version is 4.4e-6 from a float64 evaluation,
     JAX's interpreted kernel 2.2e-6; the bar holds at the attack's scale,
-    unit-cube clouds with cnt up to 12, and at tests/test_ops_chamfer.py's
-    (70, 50)."""
+    unit-cube clouds with cnt up to 12, at tests/test_ops_chamfer.py's
+    (70, 50), and on unit-cube clouds whose exact ties straddle the
+    kernels' tiles, blocks and steps (tests/test_torch_ops_chamfer_ties.py)."""
     from geometric_adv_tpu.ops.pallas.chamfer_bwd_kernel import (
         chamfer_grad1_pallas_vpu,
     )
+    from test_torch_ops_chamfer_ties import straddling_ties
 
-    x1, x2 = tie_clouds(n + m, 2, n, m)
-    if unit:
+    if unit == "ties":
+        x1, x2 = straddling_ties(2, n, m, seed=n + m)
+    else:
+        x1, x2 = tie_clouds(n + m, 2, n, m)
+    if unit is True:
         x1, x2 = (np.abs(a) % 1.0 for a in (x1, x2))
     rng = np.random.RandomState(n)
     g1 = rng.rand(2, n).astype(np.float32)

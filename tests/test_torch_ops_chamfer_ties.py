@@ -10,9 +10,10 @@ On the card (tests/test_torch_cuda.py, chip_smoke.py) the kernels are held
 bit-equal to the plain versions on these clouds; here the plain versions
 are held to the JAX package: indices equal and distances bit-equal to its
 "direct" method, the payloads at tests/test_torch_ops_chamfer_fused.py's
-bars against the JAX kernel in interpreter mode, and snn1 and K3's
-gradient (csrc/chamfer_grad.cu, which adds each point's scatter terms in
-ascending j) bit-equal to explicit ascending-j loops.
+bars against the JAX kernel in interpreter mode, and snn1 and the
+gradients of K3 and K4 (csrc/chamfer_grad.cu, which adds each point's
+scatter terms in ascending j, in each algebra) bit-equal to explicit
+ascending-j loops.
 """
 
 import numpy as np
@@ -132,14 +133,35 @@ def grad1_loop(x1, x2, i1, i2, g1, g2):
     return out
 
 
-@pytest.mark.parametrize("kind,b,n,m", [("ties", 2, 2048, 2048), ("ties", 1, 2500, 2048),
-                                        ("clustered", 2, 300, 2500),
-                                        ("clustered", 2, 2048, 600)])
-def test_plain_grad1_is_an_ascending_j_loop(kind, b, n, m):
-    """K3 sums each point's scatter terms in ascending j from 0.0f; its
-    plain version (the card's test oracle) must hold the same bits, on tie
-    clouds and on clouds whose x2 clusters on three x1 points (segments of
-    hundreds of j, every other point's segment empty)."""
+def grad1_vpu_loop(x1, x2, i1, i2, g1, g2):
+    """K4's output as its segmented pass forms it: with w = 2*g2[j], sc += w*x2[j]
+    and cnt += w added to i's sums in ascending j from 0.0f, the gather
+    0.0f + x2[idx1], then (2*g1*(x1 - gath) - sc) + x1*cnt; float32
+    throughout."""
+    b, n, _ = x1.shape
+    two, zero = np.float32(2.0), np.float32(0.0)
+    out = np.empty_like(x1)
+    for bi in range(b):
+        sc = np.zeros((n, 3), np.float32)
+        cnt = np.zeros((n, 1), np.float32)
+        for j, i in enumerate(i2[bi]):
+            if 0 <= i < n:
+                w = two * g2[bi, j]
+                sc[i] += x2[bi, j] * w
+                cnt[i] += w
+        gath = zero + x2[bi, i1[bi]]
+        out[bi] = ((two * g1[bi])[:, None] * (x1[bi] - gath) - sc) + x1[bi] * cnt
+    return out
+
+
+GRAD1_CASES = [("ties", 2, 2048, 2048), ("ties", 1, 2500, 2048),
+               ("clustered", 2, 300, 2500), ("clustered", 2, 2048, 600)]
+
+
+def grad1_inputs(kind, b, n, m):
+    """Tie clouds, or clouds whose x2 clusters on three x1 points (segments
+    of hundreds of j, every other point's segment empty), with uniform
+    weights and the plain argmins."""
     rng = np.random.RandomState(b * n + m)
     if kind == "ties":
         x1, x2 = straddling_ties(b, n, m, seed=n + m)
@@ -150,10 +172,29 @@ def test_plain_grad1_is_an_ascending_j_loop(kind, b, n, m):
     g2 = rng.rand(b, m).astype(np.float32)
     _, i1, _, i2 = (t.numpy() for t in tchamfer.nn_distance_plain(
         torch.from_numpy(x1), torch.from_numpy(x2)))
-    got = tchamfer.chamfer_grad1_plain(*(torch.from_numpy(a) for a in (x1, x2, i1, i2, g1, g2)))
-    np.testing.assert_array_equal(got.numpy(), grad1_loop(x1, x2, i1, i2, g1, g2))
     counts = np.stack([np.bincount(i, minlength=n) for i in i2])
     if kind == "clustered":
         assert counts.max() >= 100 and (counts == 0).mean() > 0.5
     else:
         assert counts.max() >= 2
+    return x1, x2, i1, i2, g1, g2
+
+
+@pytest.mark.parametrize("kind,b,n,m", GRAD1_CASES)
+def test_plain_grad1_is_an_ascending_j_loop(kind, b, n, m):
+    """K3 sums each point's scatter terms in ascending j from 0.0f; its
+    plain version (the card's test oracle) must hold the same bits, on tie
+    clouds and on clouds whose x2 clusters on three x1 points."""
+    args = grad1_inputs(kind, b, n, m)
+    got = tchamfer.chamfer_grad1_plain(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_array_equal(got.numpy(), grad1_loop(*args))
+
+
+@pytest.mark.parametrize("kind,b,n,m", GRAD1_CASES)
+def test_plain_grad1_vpu_is_an_ascending_j_loop(kind, b, n, m):
+    """K4 adds each point's sc and cnt terms in ascending j from 0.0f, in
+    its own algebra; its plain version (the card's test oracle) must hold
+    the same bits, on the same clouds as K3's."""
+    args = grad1_inputs(kind, b, n, m)
+    got = tchamfer.chamfer_grad1_vpu_plain(*(torch.from_numpy(a) for a in args))
+    np.testing.assert_array_equal(got.numpy(), grad1_vpu_loop(*args))
