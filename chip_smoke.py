@@ -37,9 +37,14 @@ the script exits non-zero:
      plain version, nn1 = x2[i1], cnt1 equal, snn1 bit-equal to the host's
      ascending-j sum; the frozen attack's payload op launches K5 at every
      shape, past 2048 points too;
-   - K8 (``nn_distance_hier``) on tie clouds and on the synthetic dataset's
-     surface clouds at [64, 2048^2]: values bit-equal to K1, indices equal;
-     timed beside K1;
+   - K8 and its preparation kernel (``nn_distance_hier``: one launch of
+     each) on tie clouds and on the synthetic dataset's surface clouds at
+     [64, 2048^2]: values bit-equal to K1, indices equal; on the surface
+     clouds the preparation against the plain preparation (codes, order,
+     sorted clouds, centres equal, radii within 1 ulp) and K8, both
+     directions in one launch, bit-equal to its plain version; timed beside
+     the op and K1, with the pairs its bound counts and the blocks an SM
+     holds;
    - K6/K7 (the EMD sweep) at [24, 1024^2] and [50, 1024^2] (K6, K7 and
      each other: bit-equal),
      [24, 2048^2] and [50, 2048^2] (K7) and the ragged [8, 1024 x 512],
@@ -141,6 +146,9 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "chamfer_loss_payloads_cuda": (CSRC + "chamfer_payloads.cu",
                                    PALLAS + "chamfer_loss_kernel.py:336"),
     "nn_direction_hier_cuda": (CSRC + "nn_hier.cu", PALLAS + "chamfer_hier_kernel.py:237"),
+    # K8's preparation: the JAX package's is jnp (morton_codes, sort_cloud,
+    # build_block_structure), reached by no pallas_call
+    "hier_prep_cuda": (CSRC + "nn_hier.cu", PALLAS + "chamfer_hier_kernel.py:104"),
     "emd_sweep_block_cuda": (CSRC + "emd_sweep.cu", PALLAS + "emd_fused_kernel.py:179"),
     "emd_sweep_tiled_cuda": (CSRC + "emd_sweep.cu", PALLAS + "emd_round_kernel.py:268"),
 }
@@ -153,6 +161,7 @@ OWN_KERNELS = {
     "chamfer_payloads.cu (K5's payload pass)": ("payload_kernel",),
     "emd_sweep.cu (K6, K7)": ("emd_block_kernel", "tiled_"),
     "nn_hier.cu (K8)": ("hier_kernel",),
+    "nn_hier.cu (K8's preparation)": ("hier_prep_kernel",),
 }
 
 
@@ -203,7 +212,10 @@ def kernel_bound(name, b, n, m, pairs=None, zero_share=None):
     type and the bytes over its memory rate, each input read once and each
     output written once. Operations per distance pair: 8 FP32 for the
     distance (3 sub, 3 mul, 2 add) and a minimum per direction (K1, K2, K5;
-    one direction on the ``pairs`` K8's pruning needs); per pair and level
+    for K8, one minimum on the ``pairs`` of both directions that each
+    query's own lower bounds leave, the least any exact search over its
+    spheres scans; K8 reads the prepared clouds, 16 bytes a point, and its
+    preparation, bound by its bytes, reads 12 and writes 16); per pair and level
     of the EMD sweep (g1 mode), 27 FP32 (the distance, the kernel value, the
     row, column and cost products and sums, the g1 terms) and 6 FP64 (its
     three float64 sums, product and add), but only the distance (8 FP32) for
@@ -220,9 +232,11 @@ def kernel_bound(name, b, n, m, pairs=None, zero_share=None):
     elif name in ("chamfer_grad1_cuda", "chamfer_grad1_vpu_cuda"):
         fp32 = 20.0 * b * (n + m)
         nbytes = cloud + b * (8 * (n + m) + 12 * n)  # idx, g in; grad out
-    elif name == "nn_direction_hier_cuda":
+    elif name == "nn_direction_hier_cuda":  # both directions, prepared clouds
         fp32 = 9.0 * pairs
-        nbytes = cloud + b * (4 * n + 4 * m + 16 * -(-m // 128) + 8 * n)
+        nbytes = b * (n + m) * (16 + 8) + b * 16 * (-(-n // 128) + -(-m // 128))
+    elif name == "hier_prep_cuda":  # both clouds; the sort's compares are few
+        nbytes = b * (n + m) * (12 + 16) + b * 16 * (-(-n // 128) + -(-m // 128))
     else:  # the EMD sweeps, g1 only
         live = levels - sum(zero_share or ())
         fp32 = (8.0 * levels + 19.0 * live) * b * n * m
@@ -487,11 +501,16 @@ def surface_clouds(b, n, seed):
     ]).astype(np.float32)).cuda() for _ in range(2))
 
 
-def hier_kernel_phase(cu, hier, ch):
-    """K8: ``nn_distance_hier`` (K8 for both directions) bit-equal to K1,
-    values and indices, on tie clouds and surface clouds; on the sorted
-    surface clouds each direction against its plain version, timed beside
-    K1 at the same shape."""
+def hier_kernel_phase(cu, hier):
+    """K8 and its preparation: ``nn_distance_hier`` (one launch of each)
+    bit-equal to K1, values and indices, on tie clouds and surface clouds;
+    on the surface clouds the preparation kernel against the plain
+    preparation (codes, order and sorted cloud equal, centres equal, radii
+    within 1 ulp) and K8, both directions in one launch, bit-equal to its
+    plain version; each timed (CUDA events) beside the plain versions, the
+    op and K1 at the same shape; the pairs K8's bound counts, the pairs its
+    warps' votes need and those of a 128-query tile, and the blocks an SM
+    holds, printed."""
     b = 64
     cases = {
         f"tie clouds [{b},{N_POINTS},3]^2": tie_clouds(b, N_POINTS, N_POINTS, seed=5),
@@ -499,62 +518,103 @@ def hier_kernel_phase(cu, hier, ch):
         f"surface clouds [{b},{N_POINTS},3]^2": surface_clouds(b, N_POINTS, seed=3),
     }
     for label, (x, y) in cases.items():
+        before = cu.launch_counts()
         got = hier.nn_distance_hier(x, y)
+        made = {k: v - before[k] for k, v in cu.launch_counts().items() if v != before[k]}
         want = cu.nn_distance_cuda(x, y)
         torch.cuda.synchronize()
+        if made != {"hier_prep_cuda": 1, "nn_direction_hier_cuda": 1}:
+            fail(f"nn_distance_hier launched {made} on the {label}, not one preparation "
+                 "and one K8")
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            fail(f"K8 differs from K1 on the {label}")
-        print(f"kernel check K8 on the {label}: values bit-equal to K1, indices equal")
+            fail(f"nn_distance_hier differs from K1 on the {label}")
+        print(f"kernel check K8 on the {label}: nn_distance_hier values bit-equal to K1, "
+              f"indices equal; launches {made}")
     x, y = cases[f"surface clouds [{b},{N_POINTS},3]^2"]
-    xs, px, cyr_x = hier._prep(x)
-    ys, py, cyr_y = hier._prep(y)
-    args = ((xs, hier.seed_upper_bounds(xs, cyr_y), ys, py, cyr_y),
-            (ys, hier.seed_upper_bounds(ys, cyr_x), xs, px, cyr_x))
-    err = 0.0
-    for a in args:
-        got = cu.nn_direction_hier_cuda(*a)
-        want = hier.nn_direction_hier_plain(*a)
+    prepared = cu.hier_prep_cuda(x, y, with_codes=True)
+    radius_err = 0.0
+    for pts, (pts4, cyr, codes) in zip((x, y), prepared):
+        want4, want_cyr = hier.prepare_plain(pts)
+        ulp = torch.nextafter(want_cyr[..., 3], torch.tensor(np.inf, device="cuda"))
+        radius_err = max(radius_err, (cyr[..., 3] - want_cyr[..., 3]).abs().max().item())
+        if not (torch.equal(codes, hier.morton_codes(pts).to(torch.int32))
+                and torch.equal(pts4, want4) and torch.equal(cyr[..., :3], want_cyr[..., :3])
+                and bool(((cyr[..., 3] - want_cyr[..., 3]).abs()
+                          <= ulp - want_cyr[..., 3]).all())):
+            fail("the preparation kernel differs from the plain preparation")
+    print("kernel check the preparation kernel on the surface clouds: codes, order, "
+          f"sorted clouds and centres equal, radii within 1 ulp (max abs err {radius_err:.3g})")
+    (x4, cyr_x, _), (y4, cyr_y, _) = prepared
+    dirs = [(x4, y4, cyr_y), (y4, x4, cyr_x)]
+    got = cu.nn_direction_hier_cuda(dirs)
+    for (kd, ki), d in zip(got, dirs):
+        pd, pi = hier.nn_direction_hier_plain(*d)
         torch.cuda.synchronize()
-        err = max(err, (got[0] - want[0]).abs().max().item())
-        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-            fail("K8 differs from its plain version on the sorted surface clouds")
-    pairs = hier_needed_pairs(hier, ch, args[0][0], args[0][4],
-                              cu.nn_direction_hier_cuda(*args[0], with_idx=False)[0],
-                              y.shape[1])
-    ms = sync_timed(lambda: cu.nn_direction_hier_cuda(*args[0]), 20)
-    plain_ms = sync_timed(lambda: hier.nn_direction_hier_plain(*args[0]), 3)
-    both_ms = sync_timed(lambda: [cu.nn_direction_hier_cuda(*a) for a in args], 20)
-    full_ms = sync_timed(lambda: hier.nn_distance_hier(x, y), 10)
+        if not (torch.equal(kd, pd) and torch.equal(ki, pi)):
+            fail("K8 differs from its plain version on the surface clouds")
+    pairs = sum(hier_needed_pairs(hier, q, o4.shape[1], cyr, d[0])
+                for (q, o4, cyr), d in zip(dirs, got))
+    # device time (torch.profiler) as for K3: the preparation's wrapper takes
+    # longer on the host than its kernel on the card (CUDA events printed)
+    ms = device_timed(lambda: cu.nn_direction_hier_cuda(dirs), 20)
+    call_ms = sync_timed(lambda: cu.nn_direction_hier_cuda(dirs), 20)
+    one_ms = device_timed(lambda: cu.nn_direction_hier_cuda(dirs[:1]), 20)
+    plain_ms = sync_timed(lambda: [hier.nn_direction_hier_plain(*d) for d in dirs], 3)
+    prep_ms = device_timed(lambda: cu.hier_prep_cuda(x, y), 20)
+    prep_call_ms = sync_timed(lambda: cu.hier_prep_cuda(x, y), 20)
+    prep_plain_ms = sync_timed(lambda: [hier.prepare_plain(c) for c in (x, y)], 5)
+    op_ms = sync_timed(lambda: hier.nn_distance_hier(x, y), 20)
+    op_device_ms = device_timed(lambda: hier.nn_distance_hier(x, y), 20)
     k1_ms = sync_timed(lambda: cu.nn_distance_cuda(x, y), 20)
     tx, ty = cases[f"tie clouds [{b},{N_POINTS},3]^2"]
-    tie_ms = sync_timed(lambda: hier.nn_distance_hier(tx, ty), 10)
-    print(f"  nn_direction_hier_cuda on the sorted surface clouds: one direction "
-          f"{ms:.4f} ms (plain {plain_ms:.4f} ms), both directions {both_ms:.4f} "
-          f"ms; nn_distance_hier with its sorts {full_ms:.4f} ms (uniform tie "
-          f"clouds {tie_ms:.4f} ms); K1 at the same shape {k1_ms:.4f} ms")
-    torch.cuda.synchronize()
-    print(f"  K8's pruning leaves {pairs / (b * N_POINTS * N_POINTS):.3f} of the "
-          "direction's pairs, at the final distances (the bound's operations)")
-    return {"nn_direction_hier_cuda": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                       "bnm": (b, N_POINTS, N_POINTS), "pairs": pairs}}
+    tie_ms = sync_timed(lambda: hier.nn_distance_hier(tx, ty), 20)
+    print(f"  nn_direction_hier_cuda on the prepared surface clouds: both directions "
+          f"{ms:.4f} ms on the device in one launch ({call_ms:.4f} ms a call by CUDA "
+          f"events), one direction {one_ms:.4f} ms (plain, both: {plain_ms:.4f} ms); "
+          f"hier_prep_cuda, both clouds {prep_ms:.4f} ms on the device ({prep_call_ms:.4f} "
+          f"ms a call; plain {prep_plain_ms:.4f} ms); nn_distance_hier {op_ms:.4f} ms a call, "
+          f"{op_device_ms:.4f} ms on the device (uniform tie clouds {tie_ms:.4f} ms); K1 at "
+          f"the same shape {k1_ms:.4f} ms")
+    total = 2 * b * N_POINTS * N_POINTS
+    votes = {nt: sum(hier_needed_pairs(hier, q, o4.shape[1], cyr, d[0], nt)
+                     for (q, o4, cyr), d in zip(dirs, got)) for nt in (hier.NT, 128)}
+    print(f"  K8's pairs, both directions, share of the {total} pairs: each query's own "
+          f"(the bound) {pairs / total:.4f}; a warp's vote of {hier.NT} queries "
+          f"{votes[hier.NT] / total:.4f}; a tile of 128 queries {votes[128] / total:.4f}; "
+          f"{cu.hier_blocks_per_sm(N_POINTS)} K8 blocks an SM "
+          "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    shape = (b, N_POINTS, N_POINTS)
+    return {"nn_direction_hier_cuda": {"max_abs_err": 0.0, "ms": ms, "ms_by": DEVICE_TIME,
+                                       "call_ms": call_ms, "plain_ms": plain_ms,
+                                       "one_direction_ms": one_ms, "op_ms": op_ms,
+                                       "op_device_ms": op_device_ms, "bnm": shape,
+                                       "pairs": pairs},
+            "hier_prep_cuda": {"max_abs_err": radius_err, "ms": prep_ms, "ms_by": DEVICE_TIME,
+                               "call_ms": prep_call_ms, "plain_ms": prep_plain_ms,
+                               "bnm": shape}}
 
 
-def hier_needed_pairs(hier, ch, x, cyr, d, m):
-    """Distance pairs K8's exact pruned search must evaluate on these
-    clouds: a block of sorted points is needed by a tile of NT queries where
-    some query's lower bound to its sphere (the kernel's formula) is at most
-    that query's final NN distance; each such (tile, block) costs NT x the
-    block's points."""
-    b, n, _ = x.shape
-    gap = torch.clamp(torch.sqrt(ch.pairwise_sqdist(x, cyr[..., :3])) - cyr[:, None, :, 3],
-                      min=0.0)
-    need = (gap * gap * hier._LB_MARGIN - hier._ABS_MARGIN) <= d[..., None]
-    tiles = -(-n // hier.NT)
-    need = torch.nn.functional.pad(need, (0, 0, 0, tiles * hier.NT - n))
-    need = need.reshape(b, tiles, hier.NT, -1).any(dim=2)
-    sizes = torch.tensor([min(hier.BS, m - j * hier.BS) for j in range(need.shape[-1])],
-                         device=x.device, dtype=torch.float64)
-    return float((need.double() * sizes).sum().item()) * hier.NT
+def hier_needed_pairs(hier, q, m, cyr, d, tile=1):
+    """Distance pairs of one direction that an exact search over these
+    spheres must evaluate when a block is scanned for ``tile`` consecutive
+    sorted queries at once: a block of sorted points is needed by a tile
+    where some query's lower bound to its sphere (the kernel's formula) is
+    at most that query's final NN distance ``d`` (in original order); each
+    such (tile, block) costs the tile's queries x the block's points (of
+    the other cloud's m). With tile 1, each query's own need: the least any
+    exact search scans."""
+    b, n, _ = q.shape
+    nb = int(cyr.shape[1])
+    d_sorted = torch.gather(d, 1, hier.cloud_ids(q).long())
+    need = hier.lower_bounds(q[..., :3].contiguous(), cyr) <= d_sorted[..., None]
+    tiles = -(-n // tile)
+    need = torch.nn.functional.pad(need, (0, 0, 0, tiles * tile - n))
+    need = need.reshape(b, tiles, tile, nb).any(dim=2).double()
+    queries = torch.tensor([min(tile, n - t * tile) for t in range(tiles)],
+                           dtype=torch.float64, device=q.device)
+    points = torch.tensor([min(hier.BS, m - j * hier.BS) for j in range(nb)],
+                          dtype=torch.float64, device=q.device)
+    return float((need * queries[:, None] * points).sum().item())
 
 
 def sweep_errors(got, want):
@@ -1020,9 +1080,9 @@ def main() -> int:
     records.update(chamfer_kernel_phase(cu, ch))
     records.update(grad_kernel_phase(cu, ch))
     payload_kernel_phase(cu, ch)
-    records.update(hier_kernel_phase(cu, hier, ch))
-    # K4 and K8 are on no path of the package (as in the JAX package): their
-    # launch counts are the kernel phase's
+    records.update(hier_kernel_phase(cu, hier))
+    # K4 and K8 (with its preparation) are on no path of the package (as in
+    # the JAX package): their launch counts are the kernel phase's
     phase_counts = cu.launch_counts()
     print(f"kernel phase launches: {phase_counts}")
     records.update(emd_kernel_phase(cu_emd, emd))
@@ -1201,9 +1261,10 @@ def main() -> int:
     check_artifacts(project, ae, len(CLASSES), n_test, 1024)
     torch.cuda.synchronize()
 
-    for k in ("chamfer_grad1_vpu_cuda", "nn_direction_hier_cuda"):
+    for k in ("chamfer_grad1_vpu_cuda", "nn_direction_hier_cuda", "hier_prep_cuda"):
         launches[k] = phase_counts[k]
-    print(f"launches over the seven legs (K4, K8: the kernel phase's): {launches}")
+    print("launches over the seven legs (K4, K8 and its preparation: the kernel "
+          f"phase's): {launches}")
     print("rates: " + json.dumps(rates))
     kernels = []
     for name, rec in records.items():

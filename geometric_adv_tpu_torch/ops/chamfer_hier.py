@@ -5,22 +5,35 @@ No route of the package calls it, as in the JAX package, which recorded it
 as a negative result on the TPU; it is an op entry held against ``nn_distance``.
 The steps:
 
-1. both clouds are Morton-sorted (10 bits per axis, codes in int64, a
-   stable sort) so that neighbouring points are neighbours in space;
-2. the sorted other cloud is cut into blocks of ``BS`` points, each with a
-   bounding sphere (box centre, radius inflated by ``_R_MARGIN``);
-3. each query gets a true upper bound on its NN distance,
-   ``min_j (|x - c_j| + r_j)^2``, inflated;
-4. the direction kernel visits the blocks in order and skips a block when no
-   point of a ``NT``-point query tile has ``lb <= cur``, where ``lb`` is the
-   block's lower bound: ``max(0, |x - c| - r)^2``, deflated.
+1. both clouds are prepared: Morton-sorted (10 bits per axis, a stable
+   sort) so that neighbouring points are neighbours in space, and cut into
+   blocks of ``BS`` sorted points, each with a bounding sphere (box centre,
+   radius inflated by ``_R_MARGIN``). A prepared cloud is [b, k, 4]: the
+   sorted points with the bits of each one's original int32 id in the last
+   column;
+2. each query gets a true upper bound on its NN distance from the other
+   cloud's spheres, ``min_j (|x - c_j| + r_j)^2``, inflated;
+3. each tile of ``NT`` queries (one warp's) visits the blocks nearest
+   first (by the tile's least lower bound ``lb = max(0, |x - c| - r)^2``,
+   deflated) and skips a block when none of its queries has ``lb <= cur``,
+   ``cur`` the query's running minimum, a packed key (distance, original
+   id) that starts at (upper bound, 2^30); results go to the queries'
+   original positions.
 
 Since ``lb`` never exceeds the distance to any point of the block, the
 result equals ``nn_distance``: the same values, and indices with ties to the
 lowest original id. The margins keep float32 rounding in the bounds from
-pruning the argmin. On a CUDA tensor the direction runs K8
-(``ops/cuda/chamfer.py::nn_direction_hier_cuda``); on the CPU its plain
-version here, the same algorithm with the same tile-wide bound test.
+pruning the argmin. A query with a NaN coordinate gets NaN and index 2^30; a
+NaN point of the other cloud is never taken while a finite distance exists
+(its key lies above every finite key). Clouds with NaN are otherwise outside
+the contract: their sort and spheres are not held to any reference.
+
+On CUDA tensors ``nn_distance_hier`` is two launches: the preparation kernel
+for both clouds (``ops/cuda/chamfer.py::hier_prep_cuda``) and K8 for both
+directions (``nn_direction_hier_cuda``); past ``PREP_CAP`` points a cloud
+the preparation's sort merges through global memory in a few more launches.
+On the CPU both are their plain versions here, the same algorithms with the
+same vote.
 """
 
 from __future__ import annotations
@@ -31,7 +44,8 @@ from geometric_adv_tpu_torch.ops.chamfer import _on_cuda, _take_points, pairwise
 from geometric_adv_tpu_torch.ops.cuda import chamfer as _cuda
 
 BS = _cuda.HIER_BLOCK  # sorted points per bounding sphere
-NT = 128  # query points per tile, the unit of the skip vote (csrc kThreads)
+NT = _cuda.HIER_TILE  # query points per tile, the unit of the skip vote
+PREP_CAP = _cuda.HIER_PREP_CAP  # points a cloud the preparation sorts in one launch
 _BIG_IDX = 2**30
 _R_MARGIN = 1.0 + 1e-4
 _LB_MARGIN = 1.0 - 1e-5
@@ -91,79 +105,132 @@ def seed_upper_bounds(x: torch.Tensor, cyr: torch.Tensor) -> torch.Tensor:
     return ub * _UB_MARGIN + _ABS_MARGIN
 
 
-def nn_direction_hier_plain(x, ub, ys, oy, cyr, with_idx: bool = True):
-    """Plain version of kernel K8 (``nn_direction_hier_cuda``): the same
-    visit of the blocks in order, each taken only where some query of an
-    ``NT``-point tile has ``lb <= cur``; ties to the lowest original id."""
-    b, n, _ = x.shape
-    m = ys.shape[1]
+def cloud_ids(pts4: torch.Tensor) -> torch.Tensor:
+    """The original int32 ids of a prepared cloud [b, k, 4], in sorted
+    order (a view of its last column)."""
+    return pts4[..., 3].view(torch.int32)
+
+
+def prepare_plain(pts: torch.Tensor):
+    """Plain version of the preparation kernel (``hier_prep_cuda``) for one
+    [b, k, 3] cloud batch: (prepared cloud [b, k, 4], spheres)."""
+    srt, perm = sort_cloud(pts)
+    pts4 = torch.cat([srt, perm.view(torch.float32)[..., None]], dim=-1)
+    return pts4, build_block_structure(srt)
+
+
+def prepare(*clouds: torch.Tensor):
+    """Prepare one or two [b, k, 3] cloud batches; -> one (prepared cloud,
+    spheres) per batch. On CUDA tensors the preparation kernel for all of
+    them, on the CPU the plain preparation."""
+    clouds = tuple(c.float().contiguous() for c in clouds)
+    if _on_cuda(clouds[0]):
+        return tuple(p[:2] for p in _cuda.hier_prep_cuda(*clouds))
+    return tuple(prepare_plain(c) for c in clouds)
+
+
+def _pack(d: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The kernel's key (bits of d) << 32 | id, unsigned, as an int64 of the
+    same order: the sign bit of the high word is flipped."""
+    hi = (d.contiguous().view(torch.int32) ^ -2**31).to(torch.int64)
+    return hi * 2**32 + ids.to(torch.int64)
+
+
+def _unpack(key: torch.Tensor):
+    bits = ((key >> 32) ^ -2**31).to(torch.int32)
+    return bits.view(torch.float32), (key & 0xFFFFFFFF).to(torch.int32)
+
+
+def lower_bounds(x: torch.Tensor, cyr: torch.Tensor) -> torch.Tensor:
+    """The lower bound of |x - p|^2 over each sphere's points, for [b, n, 3]
+    queries: ``max(0, |x - c| - r)^2``, deflated; [b, n, nb]."""
+    gap = torch.clamp(torch.sqrt(pairwise_sqdist(x, cyr[..., :3])) - cyr[:, None, :, 3],
+                      min=0.0)
+    return gap * gap * _LB_MARGIN - _ABS_MARGIN
+
+
+def visit_order(lb: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """The order in which a tile of ``NT`` queries visits the blocks: by the
+    tile's least lower bound over its valid queries, ties by block;
+    [b, tiles, nb] block indices. (The kernel ranks the blocks so within
+    each chunk it stages; the results do not depend on the order.)"""
+    b, n, nb = lb.shape
+    tile_lb = lb.masked_fill(~valid[..., None], float("inf"))
+    tile_lb = tile_lb.reshape(b, n // NT, NT, nb).amin(dim=2)
+    return torch.argsort(tile_lb, dim=-1, stable=True)
+
+
+def nn_direction_hier_plain(q: torch.Tensor, o4: torch.Tensor, cyr: torch.Tensor,
+                            with_idx: bool = True):
+    """Plain version of kernel K8 (``nn_direction_hier_cuda``), one
+    direction: the queries q [b, n, 3] (results in their order) or a
+    prepared cloud [b, n, 4] (results at its original ids) against the
+    prepared o4 [b, m, 4] with spheres cyr. The same visit of the blocks
+    (``visit_order``), each taken only where some query of an ``NT``-point
+    tile has ``lb <= cur``, the same packed-key minimum; -> (dist [b, n],
+    idx [b, n] int32 or None)."""
+    b, n, _ = q.shape
+    m, nb = o4.shape[1], cyr.shape[1]
     tiles = -(-n // NT)
     pad = tiles * NT - n
-    valid = torch.arange(tiles * NT, device=x.device) < n
+    x = q[..., :3].contiguous()
+    bad = torch.isnan(x).any(dim=-1)
+    valid = torch.nn.functional.pad(~bad, (0, pad))
     xp = torch.nn.functional.pad(x, (0, 0, 0, pad))
-    cur = torch.nn.functional.pad(ub, (0, pad))
-    icur = torch.full_like(cur, _BIG_IDX, dtype=torch.int32)
-    for j in range(cyr.shape[1]):
-        c, r = cyr[:, None, j, :3], cyr[:, None, j, 3]
-        d = xp - c
-        dc = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
-        gap = torch.clamp(torch.sqrt(dc) - r, min=0.0)
-        lb = gap * gap * _LB_MARGIN - _ABS_MARGIN
-        need = ((lb <= cur) & valid).reshape(b, tiles, NT).any(dim=-1)
-        need = need.repeat_interleave(NT, dim=1)
-        sl = slice(j * BS, min((j + 1) * BS, m))
-        dist = pairwise_sqdist(xp, ys[:, sl])
-        tmin = dist.amin(dim=-1)
-        ids = torch.where(dist == tmin[..., None], oy[:, None, sl], _BIG_IDX)
-        targ = ids.amin(dim=-1)
-        better = need & (tmin < cur)
-        tie = need & (tmin == cur)
-        icur = torch.where(better, targ,
-                           torch.where(tie, torch.minimum(icur, targ), icur))
-        cur = torch.where(better, tmin, cur)
-    return cur[:, :n], icur[:, :n] if with_idx else None
+    lb = lower_bounds(xp, cyr)
+    order = visit_order(lb, valid)
+    # the blocks [b, nb, BS], a ragged last one padded with keys that never win
+    fill = nb * BS - m
+    yb = torch.nn.functional.pad(o4[..., :3], (0, 0, 0, fill)).reshape(b, nb, BS, 3)
+    ib = torch.nn.functional.pad(cloud_ids(o4), (0, fill)).reshape(b, nb, BS)
+    pads = (torch.arange(nb * BS, device=q.device) >= m).reshape(nb, BS)
+    ub = seed_upper_bounds(xp, cyr)
+    key = _pack(ub, torch.full_like(ub, _BIG_IDX, dtype=torch.int32)).reshape(b, tiles, NT)
+    xt, lbt = xp.reshape(b, tiles, NT, 3), lb.reshape(b, tiles, NT, nb)
+    vt = valid.reshape(b, tiles, NT)
+    for k in range(nb):
+        jb = order[..., k]  # [b, tiles]
+        lbq = torch.gather(lbt, 3, jb[:, :, None, None].expand(b, tiles, NT, 1))[..., 0]
+        need = ((lbq <= _unpack(key)[0]) & vt).any(dim=-1, keepdim=True)
+        pts = torch.gather(yb, 1, jb[..., None, None].expand(b, tiles, BS, 3))
+        ids = torch.gather(ib, 1, jb[..., None].expand(b, tiles, BS))
+        keys = _pack(pairwise_sqdist(xt, pts), ids[:, :, None, :])
+        keys = keys.masked_fill(pads[jb][:, :, None, :], torch.iinfo(torch.int64).max)
+        key = torch.where(need, torch.minimum(key, keys.amin(dim=-1)), key)
+    dist, idx = (t.reshape(b, tiles * NT)[:, :n] for t in _unpack(key))
+    dist = dist.masked_fill(bad, float("nan"))
+    idx = idx.masked_fill(bad, _BIG_IDX)
+    if q.shape[-1] == 4:  # to the original positions
+        pos = cloud_ids(q).long()
+        dist = torch.empty_like(dist).scatter_(1, pos, dist)
+        idx = torch.empty_like(idx).scatter_(1, pos, idx)
+    return dist, idx if with_idx else None
 
 
-def nn_direction(x, ub, ys, oy, cyr, with_idx: bool = True):
-    """K8 on a CUDA tensor, its plain version on the CPU."""
-    if _on_cuda(x):
-        return _cuda.nn_direction_hier_cuda(x, ub, ys, oy, cyr, with_idx)
-    return nn_direction_hier_plain(x, ub, ys, oy, cyr, with_idx)
-
-
-def _prep(pts: torch.Tensor):
-    """Sort a [b, k, 3] cloud once; -> (sorted, perm, block spheres)."""
-    srt, perm = sort_cloud(pts.float().contiguous())
-    return srt, perm, build_block_structure(srt)
+def nn_hier(directions, with_idx: bool = True):
+    """K8 for one or two directions (q, o4, cyr) in one launch on CUDA
+    tensors, its plain version on the CPU; -> [(dist, idx or None)]."""
+    if _on_cuda(directions[0][0]):
+        return _cuda.nn_direction_hier_cuda(directions, with_idx)
+    return [nn_direction_hier_plain(*d, with_idx) for d in directions]
 
 
 def nn_direction_sorted(x: torch.Tensor, y: torch.Tensor, with_idx: bool = True):
     """For each x[i] of [b, n, 3]: (min_j |x_i - y_j|^2, the smallest
     original j attaining it, or None without ``with_idx``), pruned. x keeps
     its order; a Morton-sorted x prunes best."""
-    ys, perm, cyr = _prep(y)
-    x = x.float().contiguous()
-    return nn_direction(x, seed_upper_bounds(x, cyr), ys, perm, cyr, with_idx)
-
-
-def _inverse_perm(perm: torch.Tensor) -> torch.Tensor:
-    iota = torch.arange(perm.shape[-1], dtype=perm.dtype, device=perm.device)
-    return torch.empty_like(perm).scatter_(-1, perm.long(), iota.expand_as(perm))
+    ((y4, cyr),) = prepare(y)
+    ((d, i),) = nn_hier([(x.float().contiguous(), y4, cyr)], with_idx)
+    return d, i
 
 
 def nn_distance_hier(x: torch.Tensor, y: torch.Tensor):
-    """``nn_distance``'s forward by pruned direction kernels: [..., n, 3],
-    [..., m, 3] -> (d1, i1, d2, i2) in the original point order, first
-    index on ties. Each cloud is sorted once, as query and as blocks."""
+    """``nn_distance``'s forward by pruned directions: [..., n, 3],
+    [..., m, 3] -> (d1, i1, d2, i2) in the original point order, first index
+    on ties. Each cloud is prepared once, as queries and as blocks."""
     lead = x.shape[:-2]
     n, m = x.shape[-2], y.shape[-2]
-    xs, perm_x, cyr_x = _prep(x.reshape(-1, n, 3))
-    ys, perm_y, cyr_y = _prep(y.reshape(-1, m, 3))
-    d1s, i1s = nn_direction(xs, seed_upper_bounds(xs, cyr_y), ys, perm_y, cyr_y)
-    d2s, i2s = nn_direction(ys, seed_upper_bounds(ys, cyr_x), xs, perm_x, cyr_x)
-    inv_x = _inverse_perm(perm_x).long()
-    inv_y = _inverse_perm(perm_y).long()
-    return (torch.gather(d1s, -1, inv_x).reshape(lead + (n,)),
-            torch.gather(i1s, -1, inv_x).reshape(lead + (n,)),
-            torch.gather(d2s, -1, inv_y).reshape(lead + (m,)),
-            torch.gather(i2s, -1, inv_y).reshape(lead + (m,)))
+    (x4, cyr_x), (y4, cyr_y) = prepare(x.reshape(-1, n, 3), y.reshape(-1, m, 3))
+    (d1, i1), (d2, i2) = nn_hier([(x4, y4, cyr_y), (y4, x4, cyr_x)])
+    return (d1.reshape(lead + (n,)), i1.reshape(lead + (n,)),
+            d2.reshape(lead + (m,)), i2.reshape(lead + (m,)))

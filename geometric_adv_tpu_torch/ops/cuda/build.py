@@ -12,11 +12,11 @@ Nothing is compiled when this module is imported.
 The wrapper modules share the checks here: ``ops/cuda/chamfer.py`` (K1 K2
 ``nn_distance[_values]_cuda``, K3 ``chamfer_grad1_cuda``, K4
 ``chamfer_grad1_vpu_cuda``, K5 ``chamfer_loss_payloads_cuda``, K8
-``nn_direction_hier_cuda``) and ``ops/cuda/emd.py`` (K6, K7). Each wrapper
-checks device, dtype, shape and contiguity and raises on anything else,
-allocates its outputs with ``torch.empty``, launches on the current CUDA
-stream without synchronising, raises if a launch was refused, and counts its
-launches. There is no fallback: a CPU tensor, a failed build or a refused
+``nn_direction_hier_cuda`` and its preparation ``hier_prep_cuda``) and
+``ops/cuda/emd.py`` (K6, K7). Each wrapper checks device, dtype, shape and
+contiguity and raises on anything else, allocates its outputs with
+``torch.empty``, launches on the current CUDA stream without synchronising,
+raises if a launch was refused, and counts its launches. There is no fallback: a CPU tensor, a failed build or a refused
 launch raises.
 """
 
@@ -50,7 +50,10 @@ SIGNATURES = {
     "gat_chamfer_grad1_vpu": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
     "gat_chamfer_loss_payloads": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i,
                                   _p],
-    "gat_nn_direction_hier": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+    "gat_hier_prep": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _p],
+    "gat_nn_direction_hier": [_p, _i, _p, _p, _p, _p, _i, _i, _p, _i, _p, _p, _p, _p,
+                              _i, _i, _i, _p],
+    "gat_hier_blocks_per_sm": [_i, _p],
     "gat_emd_sweep_block": [_p, _p, _p, _p, _p, _i, _i, _i, _f, _f, _fp, _i, _p],
     "gat_emd_sweep_block_clusters": [_i, _i, _i, _i, _p],
     "gat_emd_sweep_tiled": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _f, _f,

@@ -1,5 +1,5 @@
-"""Timers for the hand-written kernels, and a command that times K3-K7 alone
-and keeps their outputs.
+"""Timers for the hand-written kernels, and a command that times K3-K7 and
+the pruned chamfer op alone and keeps their outputs.
 
 ``sync_timed`` and ``device_timed`` serve ``chip_smoke.py`` too. The
 command, on one card:
@@ -15,7 +15,13 @@ times, on inputs from fixed numpy seeds (uniform clouds in [-0.5, 0.5)^3):
   50 calls;
 - K6 ``emd_sweep_block_cuda`` at [24, 50] x 1024^2 and K7
   ``emd_sweep_tiled_cuda`` at [24, 50] x 1024^2 and 2048^2, in g1 mode (the
-  EMD attack's call), 10 calls.
+  EMD attack's call), 10 calls;
+- the pruned chamfer (``ops/chamfer_hier.py``, K8) through its public
+  contracts, ``nn_distance_hier(x, y)`` and ``nn_direction_sorted(x, y)``,
+  at [64] x 2048^2 on the synthetic dataset's surface clouds (sphere, cube,
+  torus, cone) and on uniform clouds, 20 calls, with the device time of
+  each of the port's kernels it launches (``kernels_ms``, by name) and its
+  kernel launches per call (``launches``).
 
 Each time is given twice, per call after a warm-up: ``ms`` from CUDA events
 around the calls, which counts the wrapper's host time where that is longer
@@ -45,6 +51,8 @@ K5_SHAPES = ((64, N), (50, 1024))
 EMD_BATCHES = (24, 50)
 # (kernel, points): K6 at 1024, K7 at 1024 (the same function as K6) and 2048
 EMD_SWEEPS = (("K6", 1024), ("K7", 1024), ("K7", N))
+HIER_BATCH = 64
+SHAPES = ("sphere", "cube", "torus", "cone")
 
 
 def sync_timed(fn, reps: int) -> float:
@@ -61,10 +69,9 @@ def sync_timed(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_timed(fn, reps: int) -> float:
-    """Mean milliseconds per call of the device's kernels, from a
-    torch.profiler trace of ``reps`` calls after one warm-up: a kernel
-    shorter than its wrapper's host time (K3) is timed so."""
+def _device_events(fn, reps: int):
+    """The CUDA entries of a torch.profiler trace of ``reps`` calls after one
+    warm-up."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -74,9 +81,32 @@ def device_timed(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / reps
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_timed(fn, reps: int) -> float:
+    """Mean milliseconds per call of the device's kernels, from a
+    torch.profiler trace of ``reps`` calls after one warm-up: a kernel
+    shorter than its wrapper's host time (K3) is timed so."""
+    return sum(e.self_device_time_total for e in _device_events(fn, reps)) / 1e3 / reps
+
+
+def device_kernels(fn, reps: int) -> tuple[dict, float]:
+    """({kernel name: mean device ms per call}, kernel launches per call)
+    from a torch.profiler trace of ``reps`` calls after one warm-up."""
+    kernels = [e for e in _device_events(fn, reps)
+               if not e.key.startswith(("Memcpy", "Memset"))]
+    return ({e.key: e.self_device_time_total / 1e3 / reps for e in kernels},
+            sum(e.count for e in kernels) / reps)
+
+
+def _surface(b, n, seed):
+    from geometric_adv_tpu_torch.data.synthetic import sample_shape
+
+    rng = np.random.RandomState(seed)
+    return tuple(torch.from_numpy(np.stack([
+        sample_shape(SHAPES[i % len(SHAPES)], n, rng) for i in range(b)
+    ]).astype(np.float32)).cuda() for _ in range(2))
 
 
 def _clouds(b, n, seed):
@@ -124,6 +154,25 @@ def time_kernels(label: str) -> dict:
     return outputs
 
 
+def time_hier(label: str) -> dict:
+    """Time the pruned chamfer's public contracts (one JSON line each);
+    returns their outputs."""
+    from geometric_adv_tpu_torch.ops import chamfer_hier as hier
+
+    outputs = {}
+    for kind, (x, y) in (("surface", _surface(HIER_BATCH, N, seed=3)),
+                         ("uniform", _clouds(HIER_BATCH, N, seed=4))):
+        calls = {"nn_distance_hier": lambda: hier.nn_distance_hier(x, y),
+                 "nn_direction_sorted": lambda: hier.nn_direction_sorted(x, y)}
+        for name, fn in calls.items():
+            outputs[f"{name} {kind} [{HIER_BATCH}]"] = [t.cpu() for t in fn()]
+            kernels, launches = device_kernels(fn, 20)
+            _emit(label=label, op=name, clouds=kind, b=HIER_BATCH, n=N, ms=sync_timed(fn, 20),
+                  device_ms=sum(kernels.values()), launches=launches,
+                  kernels_ms={k: v for k, v in kernels.items() if "hier" in k})
+    return outputs
+
+
 def compare(a: Path, b: Path) -> bool:
     """One JSON line per output of two saved runs; True if all bit-equal."""
     x, y = torch.load(a), torch.load(b)
@@ -156,6 +205,7 @@ def main() -> int:
                           check=True).stdout.strip().splitlines()[0]
     _emit(label=args.label, card=card)
     outputs = time_kernels(args.label)
+    outputs.update(time_hier(args.label))
     args.out.mkdir(parents=True, exist_ok=True)
     torch.save(outputs, args.out / f"{args.label}.pt")
     return 0

@@ -77,6 +77,7 @@ def test_autograd_on_card_goes_through_the_kernels(cuda):
                                   "chamfer_grad1_cuda": 1,
                                   "chamfer_grad1_vpu_cuda": 0,
                                   "chamfer_loss_payloads_cuda": 0,
+                                  "hier_prep_cuda": 0,
                                   "nn_direction_hier_cuda": 0}
     ha = a.clone().requires_grad_(True)
     ch.chamfer_loss_per_pc(ha, c, method="composed").sum().backward()
@@ -232,15 +233,97 @@ def test_k4_k5_k8_match_plain_versions(cuda, b, n, m):
     cu.reset_launch_counts()
     for g, w in zip(hier.nn_distance_hier(a, c), k1):
         assert torch.equal(g, w)
-    assert cu.launch_counts()["nn_direction_hier_cuda"] == 2
-    xs, _, _ = hier._prep(a)
-    ys, perm, cyr = hier._prep(c)
-    args = (xs, hier.seed_upper_bounds(xs, cyr), ys, perm, cyr)
-    kd, ki = cu.nn_direction_hier_cuda(*args)
-    pd, pi = hier.nn_direction_hier_plain(*args)
-    assert torch.equal(kd, pd) and torch.equal(ki, pi)
-    vd, vi = cu.nn_direction_hier_cuda(*args, with_idx=False)
-    assert vi is None and torch.equal(vd, kd)
+    counts = cu.launch_counts()
+    assert counts["hier_prep_cuda"] == 1 and counts["nn_direction_hier_cuda"] == 1
+    (a4, cyr_a), (c4, cyr_c) = hier.prepare(a, c)
+    dirs = [(a4, c4, cyr_c), (c4, a4, cyr_a)]
+    for (kd, ki), d in zip(cu.nn_direction_hier_cuda(dirs), dirs):
+        pd, pi = hier.nn_direction_hier_plain(*d)
+        assert torch.equal(kd, pd) and torch.equal(ki, pi)
+    ((vd, vi),) = cu.nn_direction_hier_cuda([(a, c4, cyr_c)], with_idx=False)
+    assert vi is None and torch.equal(vd, k1[0])
+
+
+def prep_clouds(b, n, seed):
+    """Uniform clouds with equal Morton codes (a duplicated point, a near
+    copy in the same cell) and, in the last cloud, a flat axis (the box's
+    clamp to 1e-12)."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(b, n, 3).astype(np.float32)
+    if n > 40:
+        x[:, 40] = x[:, 3]
+        x[:, 20] = x[:, 3] + np.float32(1e-6)
+    x[-1, :, 2] = 0.25
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("n", [1, 5, 127, 129, 2000, 2048, 2500, 16385, 40000])
+def test_hier_prep_matches_the_plain_preparation(cuda, n):
+    """The preparation kernel, one launch for two batches, against the plain
+    torch preparation: codes, order and sorted cloud equal, centres equal,
+    radii within 1 ulp (torch sums |p - c|^2 in its own order). Past
+    PREP_CAP (16385, 40000) the sort merges through global memory."""
+    from geometric_adv_tpu_torch.ops import chamfer_hier as hier
+
+    x, y = prep_clouds(3, n, seed=n).to(cuda), prep_clouds(3, 300, seed=n + 1).to(cuda)
+    cu.reset_launch_counts()
+    got = cu.hier_prep_cuda(x, y, with_codes=True)
+    assert cu.launch_counts()["hier_prep_cuda"] == 1
+    for pts, (pts4, cyr, codes) in zip((x, y), got):
+        want4, want_cyr = hier.prepare_plain(pts)
+        assert torch.equal(codes, hier.morton_codes(pts).to(torch.int32))
+        assert torch.equal(hier.cloud_ids(pts4), hier.cloud_ids(want4))
+        assert torch.equal(pts4[..., :3], want4[..., :3])
+        assert torch.equal(cyr[..., :3], want_cyr[..., :3])
+        ulp = torch.nextafter(want_cyr[..., 3], torch.tensor(np.inf, device=cuda))
+        assert ((cyr[..., 3] - want_cyr[..., 3]).abs() <= ulp - want_cyr[..., 3]).all()
+    ((alone, alone_cyr, none),) = cu.hier_prep_cuda(x)
+    assert none is None and torch.equal(alone, got[0][0]) and torch.equal(alone_cyr, got[0][1])
+
+
+def test_nn_distance_hier_past_the_preparation_cap(cuda):
+    """Past PREP_CAP points the preparation kernel's sort merges through
+    global memory (one call of its wrapper) and K8 runs once, bit-equal to
+    K1."""
+    from geometric_adv_tpu_torch.ops import chamfer_hier as hier
+
+    a, c = (t.to(cuda) for t in unit_clouds(1, hier.PREP_CAP + 1, 300, seed=13))
+    cu.reset_launch_counts()
+    got = hier.nn_distance_hier(a, c)
+    counts = cu.launch_counts()
+    assert counts["hier_prep_cuda"] == 1 and counts["nn_direction_hier_cuda"] == 1
+    for g, w in zip(got, cu.nn_distance_cuda(a, c)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b,n,m", [(4, 2048, 2048), (2, 300, 5000), (2, 4500, 129),
+                                   (1, 33, 8193)])
+def test_nn_distance_hier_across_staged_chunks(cuda, b, n, m):
+    """K8 bit-equal to K1 where the other cloud takes more than one staged
+    chunk of 4096 points (then a barrier per chunk), and where it fits."""
+    from geometric_adv_tpu_torch.ops import chamfer_hier as hier
+
+    a, c = (t.to(cuda) for t in unit_clouds(b, n, m, seed=n + m))
+    for g, w in zip(hier.nn_distance_hier(a, c), cu.nn_distance_cuda(a, c)):
+        assert torch.equal(g, w)
+
+
+def test_k8_nan_rule_matches_the_plain_version(cuda):
+    """A query with a NaN coordinate gets NaN and index 2^30; a NaN point of
+    the other cloud is never taken; the kernel as its plain version."""
+    from geometric_adv_tpu_torch.ops import chamfer_hier as hier
+
+    a, c = (t.to(cuda) for t in unit_clouds(2, 300, 257, seed=17))
+    a[1, 33, 1] = float("nan")
+    ((c4, cyr),) = hier.prepare(c)
+    c4[0, 30, :3] = float("nan")
+    ((kd, ki),) = cu.nn_direction_hier_cuda([(a, c4, cyr)])
+    pd, pi = hier.nn_direction_hier_plain(a, c4, cyr)
+    assert torch.isnan(kd[1, 33]) and ki[1, 33] == 2**30
+    assert torch.equal(torch.isnan(kd), torch.isnan(pd)) and torch.equal(ki, pi)
+    keep = ~torch.isnan(pd)
+    assert torch.equal(kd[keep], pd[keep])
+    assert not (ki[0] == hier.cloud_ids(c4)[0, 30]).any()
 
 
 def test_fused_loss_on_card_goes_through_k5(cuda):
@@ -331,8 +414,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         cu.chamfer_loss_payloads_cuda(a, c.cpu())
     cyr = torch.zeros(2, 1, 4, device=cuda)
+    c4 = torch.zeros(2, 40, 4, device=cuda)
     with pytest.raises(ValueError):
-        cu.nn_direction_hier_cuda(a, g1, c, i2, cyr[:, :, :3].contiguous())
+        cu.nn_direction_hier_cuda([(a, c4, cyr[:, :, :3].contiguous())])
+    with pytest.raises(ValueError):
+        cu.nn_direction_hier_cuda([(a, c, cyr)])
+    with pytest.raises(ValueError):
+        cu.hier_prep_cuda(torch.zeros(1, 40, 3))
+    with pytest.raises(RuntimeError):  # the spheres of 1.4e6 points do not fit
+        m = 11000 * 128
+        cu.nn_direction_hier_cuda([(a[:1], torch.zeros(1, m, 4, device=cuda),
+                                    torch.zeros(1, m // 128, 4, device=cuda))])
 
 
 def emd_clouds(b, n, m, seed):

@@ -6,7 +6,8 @@ as tests/test_ops_chamfer.py:305-353 runs it.
 Bars: Morton codes and the sort permutation equal; block spheres and upper
 bounds rtol 1e-6; distances atol 1e-8 against the interpreter (its XLA:CPU
 code contracts the distance into FMAs) and bit-equal to the port's
-``nn_distance_plain``; indices equal.
+``nn_distance_plain``; indices equal. The packed-key minimum is pinned to
+the two-branch rule it replaced, and the NaN rule to its documentation.
 """
 
 import jax
@@ -128,12 +129,132 @@ def test_surface_clouds_stay_exact_and_bounds_are_used():
     for g, w in zip(thier.nn_distance_hier(x, y), want):
         assert torch.equal(g, w)
 
-    xs, perm_x, _ = thier._prep(x)
-    ys, perm_y, cyr = thier._prep(y)
-    ub = thier.seed_upper_bounds(xs, cyr)
-    d, _ = thier.nn_direction_hier_plain(xs, ub, ys, perm_y, cyr)
-    assert torch.equal(d, torch.gather(want[0], -1, perm_x.long()))
+    (x4, _), (y4, cyr) = thier.prepare(x, y)
+    d, _ = thier.nn_direction_hier_plain(x4, y4, cyr)
+    assert torch.equal(d, want[0])
     shrunk = cyr.clone()
     shrunk[..., 3] = 0.0
-    bad, _ = thier.nn_direction_hier_plain(xs, ub, ys, perm_y, shrunk)
+    bad, _ = thier.nn_direction_hier_plain(x4, y4, shrunk)
     assert (bad > d).any()
+
+
+def ragged_tie_clouds(seed, b, n, m):
+    """Uniform clouds of any size with exact ties where the sizes allow: a
+    duplicated point of y, a query on it, a duplicated query."""
+    rng = np.random.RandomState(seed)
+    x = (rng.rand(b, n, 3) - 0.5).astype(np.float32)
+    y = (rng.rand(b, m, 3) - 0.5).astype(np.float32)
+    y[:, 200] = y[:, 7]
+    x[:, 0] = y[:, 7]
+    if n > 100:
+        x[:, 100] = x[:, 3]
+    return x, y
+
+
+# the interpreter's FMAs move a distance by up to an ulp or two, 1.2e-7 at
+# n = 1, whose y -> x distances reach 1.24
+FMA_RTOL = 2.5e-7
+RAGGED = [(n, m) for n in (1, 127, 129, 300) for m in (257, 384)]
+
+
+@pytest.mark.parametrize("n,m", RAGGED)
+def test_plain_direction_matches_jax_kernel_and_nn_distance(n, m):
+    """The plain direction, at the kernel's vote of one warp (NT = 32
+    queries), on unsorted queries against the JAX kernel in interpret mode
+    and the port's nn_distance_plain."""
+    assert thier.NT == 32
+    x, y = ragged_tie_clouds(n + m, 2, n, m)
+    d, i = thier.nn_direction_sorted(torch.from_numpy(x), torch.from_numpy(y))
+    with pltpu.force_tpu_interpret_mode():
+        jd, ji = jax.jit(jhier.nn_direction_sorted)(x, y)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=FMA_RTOL, atol=1e-8)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    want = tchamfer.nn_distance_plain(torch.from_numpy(x), torch.from_numpy(y))
+    assert torch.equal(d, want[0]) and torch.equal(i, want[1])
+    assert (i[:, 0] == 7).all()  # on the duplicated point, its first id
+
+
+@pytest.mark.parametrize("n,m", RAGGED)
+def test_plain_op_in_original_order_matches_jax_kernel_and_nn_distance(n, m):
+    """nn_distance_hier's path through prepared clouds, whose results the
+    direction writes at the original ids, against the JAX op in interpret
+    mode and nn_distance_plain."""
+    x, y = ragged_tie_clouds(n * m, 2, n, m)
+    got = thier.nn_distance_hier(torch.from_numpy(x), torch.from_numpy(y))
+    with pltpu.force_tpu_interpret_mode():
+        want = [np.asarray(a) for a in jax.jit(jhier.nn_distance_hier)(x, y)]
+    plain = tchamfer.nn_distance_plain(torch.from_numpy(x), torch.from_numpy(y))
+    for k, (g, w, p) in enumerate(zip(got, want, plain)):
+        if k % 2:
+            np.testing.assert_array_equal(g.numpy(), w)
+        else:
+            np.testing.assert_allclose(g.numpy(), w, rtol=FMA_RTOL, atol=1e-8)
+        assert torch.equal(g, p)
+
+
+def two_branch(cur, icur, d, ids):
+    """The rule the kernel kept before its packed key: a closer point takes
+    over, an equal one keeps the lower original id."""
+    for dj, j in zip(d, ids):
+        if dj < cur:
+            cur, icur = dj, j
+        elif dj == cur:
+            icur = min(icur, j)
+    return cur, icur
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_packed_key_rule_matches_the_two_branch_rule(seed):
+    """One 64-bit minimum of (bits of d) << 32 | id, started at (ub, 2^30),
+    gives the two-branch rule's value and id on sequences full of equal
+    distances, of distances equal to ub and above it."""
+    rng = np.random.RandomState(seed)
+    d = (rng.randint(0, 6, (64, 40)) * 0.25).astype(np.float32)
+    ids = np.stack([rng.permutation(1000)[:40] for _ in range(64)]).astype(np.int32)
+    ub = (rng.randint(0, 8, 64) * 0.25).astype(np.float32)
+    ub[:4] = 0.0  # nothing below the start: it stays (ub, 2^30) or ties
+    key = thier._pack(torch.from_numpy(ub), torch.full((64,), 2**30, dtype=torch.int32))
+    keys = thier._pack(torch.from_numpy(d), torch.from_numpy(ids))
+    got_d, got_i = thier._unpack(torch.minimum(key, keys.amin(dim=-1)))
+    for r in range(64):
+        cur, icur = two_branch(ub[r], 2**30, d[r], ids[r])
+        assert (got_d[r].item(), got_i[r].item()) == (cur, icur)
+
+
+def test_packed_key_direction_on_duplicate_points_matches_the_two_branch_scan():
+    """The plain direction on clouds made of a few points each repeated
+    many times (ties in every block) against the two-branch rule over every
+    sorted point, the former kernel's scan without the pruning."""
+    rng = np.random.RandomState(3)
+    base = (rng.rand(2, 12, 3) - 0.5).astype(np.float32)
+    y = torch.from_numpy(base[:, rng.randint(0, 12, 300)])
+    x = torch.from_numpy(base[:, rng.randint(0, 12, 70)] + np.float32(0.01))
+    d, i = thier.nn_direction_sorted(x, y)
+    ((y4, cyr),) = thier.prepare(y)
+    ub = thier.seed_upper_bounds(x, cyr)
+    sqd = tchamfer.pairwise_sqdist(x, y4[..., :3])
+    ids = thier.cloud_ids(y4)
+    for c in range(2):
+        for q in range(70):
+            cur, icur = two_branch(ub[c, q].item(), 2**30, sqd[c, q].tolist(),
+                                   ids[c].tolist())
+            assert (d[c, q].item(), i[c, q].item()) == (cur, icur)
+
+
+def test_nan_queries_and_points_follow_the_documented_rule():
+    """A query with a NaN coordinate gets NaN and index 2^30; a NaN point
+    of the other cloud (its sphere built before it went NaN) is never
+    taken: the others get what they get with that point far away."""
+    x, y = ragged_tie_clouds(5, 2, 90, 257)
+    x[1, 33, 1] = np.nan
+    (y4, cyr), = thier.prepare(torch.from_numpy(y))
+    at = int((thier.cloud_ids(y4)[0] == 30).nonzero())
+    far, nan4 = y4.clone(), y4.clone()
+    far[0, at, :3] = 1e6
+    nan4[0, at, :3] = float("nan")
+    d, i = thier.nn_direction_hier_plain(torch.from_numpy(x), nan4, cyr)
+    assert torch.isnan(d[1, 33]) and i[1, 33] == 2**30
+    assert not torch.isnan(d[1, :33]).any() and not torch.isnan(d[0]).any()
+    fd, fi = thier.nn_direction_hier_plain(torch.from_numpy(x), far, cyr)
+    keep = ~torch.isnan(fd)
+    assert torch.equal(d[keep], fd[keep]) and torch.equal(i, fi)
