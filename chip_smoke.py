@@ -55,12 +55,21 @@ the script exits non-zero:
      skip threshold, their square root from the gradient's rsqrt is
      sqrtf's), the share of (warp, element) pairs K7 skips at each level
      and K6's clusters resident at once printed;
-4. seven legs through the port's stage CLIs on ``--device cuda``, each with
+4. ten legs through the port's entry points on ``--device cuda``, each with
    the launch counts zeroed just before and read just after:
    - chamfer: ``train_ae --loss chamfer`` (2048 points, 2 epochs), tst_ae,
      prepare_indices_for_attack (all three index kinds), run_attack
      (500/400 iterations, routed by the runner's calibration),
      get_dists_per_point, evaluate_attack; K1, K2 and K3 must launch;
+   - defense, on that victim's attack: run_defense_critical (with its
+     replay checks), evaluate_defense on its adversarial and clean-source
+     results, get_knn_dists_per_point, run_defense_surface,
+     evaluate_defense; the victim's loss kernel (K1) must launch, no EMD
+     kernel may;
+   - binary search: ``binary_search_attack`` on 8 pairs, 3 steps of 50
+     iterations; the attack's chamfer kernels (K1 and K3) must launch;
+   - traced attack: run_attack ``--trace_dir`` (20/10 iterations,
+     ``--chamfer_impl composed``); K1 and K3 must launch;
    - frozen-10: run_attack ``--chamfer_refresh 10`` on the same victim; K5
      must launch exactly on the refresh schedule, K1, K2, K3 never;
    - fused: run_attack ``--chamfer_impl fused``; K5 must launch, K1 and K3
@@ -77,19 +86,29 @@ the script exits non-zero:
      (2 epochs) and tst_ae; K5 (the fused loss) must launch;
    all on a synthetic dataset of sphere, cube, torus and cone, 60 clouds each;
 5. output checks per leg: every artifact has the JAX stages' shape and is
-   finite, the training loss falls, each attack lowers the mean target
+   finite (the defenses' dtypes too), the training loss falls, each attack
+   lowers the mean target
    reconstruction error, and each attack on the card agrees with the same
    attack on the host CPU (plain versions) on a small input: all metrics for
    chamfer (exact, frozen-10 and fused), and for the EMD victim with the
    perturbation-norm distance; the target-reconstruction metrics with the
    EMD distance (both EMD victims); the frozen attack refreshed every step
-   agrees with the exact one on the card;
+   agrees with the exact one on the card; the critical indices equal those
+   of the card's argmax on the same adversarial inputs, the host's argmax
+   equals the card's except at near-ties (each printed with its margin),
+   the first class's kNN distances bit-equal to the host's; the chunk-screened
+   chamfer matrix (C = 64, k = 8) over the exact matrix's clouds majorizes
+   it, keeps each cloud's per-class nearest neighbour for at least 95% of
+   the (cloud, class) pairs and at k = C equals it on one class; the
+   binary search's weights stay within their bounds and its best distances
+   at or below its first step's; the trace names K1's and K3's kernels;
 6. rates: train samples/s per leg, attack pair-iterations/s of every attack
    leg and, for the exact, frozen-10 and fused chamfer attacks, at the
    reference's batch of 250 pairs and for the EMD attacks (2048 and 1024
    points) at their 24 pairs per call (each with a torch.profiler breakdown
    and the port's kernels' share by source), the chamfer matrix's
-   pair-evaluations/s, and the peak device memory of each leg.
+   pair-evaluations/s, exact and screened, each defense stage's wall clock,
+   ``knn_point`` at [100, 2048^2], and the peak device memory of each leg.
 
 Its last lines are a JSON record of the kernels (each with its shape, its
 time and how it was taken (``ms_by``), the plain version's, its bound and
@@ -127,6 +146,13 @@ FORWARD_BATCHES = (24, 64, 250, 512)  # the attack's call, the kernel table's
 RECORD_BATCH = 64  # the batch of the JSON line's K1-K5 records (the kernel table's)
 K3_CLUSTERED = ((2, 300, 2500), (3, N_POINTS, 600))  # x2 on three x1 points
 EMD_ATTACK_PAIRS = 24  # the EMD attack's pairs per call (K7 at [24, 2048^2])
+# the screened chamfer matrix's operating point (PARITY #14) and its bar on
+# the per-class nearest neighbour (PARITY #14 measured 1.00 on 48 clouds)
+SCREEN_C, SCREEN_K, SCREEN_TOP1 = 64, 8, 0.95
+# a channel's argmax may differ between the card and the host where the
+# card's point is within this share of the host's maximum on the host: the
+# two GEMMs' roundings over 256-long dot products (~sqrt(256) * 2^-24)
+NEAR_TIE = 1e-6
 # what a record's "ms" is: a call's time by CUDA events around back-to-back
 # calls, or, for K3 (shorter than its wrapper's host time), the kernel's own
 # time on the device
@@ -1030,22 +1056,307 @@ def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20,
 
 
 def chamfer_matrix_rate(project, data):
+    """The exact chamfer matrix over the dataset's clouds (K2): returns
+    (pair-evals/s, the clouds, the matrix, the class slices)."""
     from geometric_adv_tpu_torch.data.datasets import load_point_clouds_under_folder
     from geometric_adv_tpu_torch.ops.pairwise import chamfer_distance_matrix
 
-    clouds = np.concatenate([
-        load_point_clouds_under_folder(osp.join(project, data, c)) for c in CLASSES
-    ])
+    per_class = [load_point_clouds_under_folder(osp.join(project, data, c))
+                 for c in CLASSES]
+    clouds = np.concatenate(per_class)
+    slice_idx = np.cumsum([0] + [len(c) for c in per_class])
     chamfer_distance_matrix(clouds[:8], "cuda")  # warm-up
     torch.cuda.synchronize()
     t0 = time.time()
-    chamfer_distance_matrix(clouds, "cuda")
+    mat = chamfer_distance_matrix(clouds, "cuda")
     torch.cuda.synchronize()
     matrix_pairs = len(clouds) * (len(clouds) + 1) // 2
     rate = matrix_pairs / (time.time() - t0)
     print(f"chamfer matrix {rate:.1f} pair-evals/s ({matrix_pairs} pairs of "
           f"{N_POINTS}-point clouds)")
+    return rate, clouds, mat, slice_idx
+
+
+def screened_matrix_check(clouds, exact, exact_rate, slice_idx):
+    """The chunk-screened matrix (PARITY #14) at C = SCREEN_C, k = SCREEN_K
+    over the exact matrix's clouds, timed beside it: every entry >= the
+    exact one, the per-class nearest neighbour of ``sort_dist_mat`` (the
+    matrix job's consumer) the exact one's for at least SCREEN_TOP1 of the
+    (cloud, class) pairs, and with k = C equal to the exact matrix at rtol
+    1e-6 on the first class's clouds (all 240 at k = C would take 8x the
+    screened run). Returns its pair-evals/s."""
+    from geometric_adv_tpu_torch.attack.pipeline import sort_dist_mat
+    from geometric_adv_tpu_torch.ops.pairwise import chamfer_distance_matrix
+
+    chamfer_distance_matrix(clouds[:8], "cuda", screen_chunks=SCREEN_C)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scr = chamfer_distance_matrix(clouds, "cuda", screen_chunks=SCREEN_C,
+                                  screen_k=SCREEN_K)
+    torch.cuda.synchronize()
+    pairs = len(clouds) * (len(clouds) + 1) // 2
+    rate = pairs / (time.time() - t0)
+    off = ~np.eye(len(clouds), dtype=bool)
+    rel = (scr - exact)[off] / np.maximum(exact[off], 1e-12)
+    nn_e = sort_dist_mat(exact.copy(), slice_idx)
+    nn_s = sort_dist_mat(scr.copy(), slice_idx)
+    heads = [nn_e[:, a] == nn_s[:, a] for a in slice_idx[:-1]]
+    top1 = float(np.mean(heads))
+    first = slice(0, int(slice_idx[1]))
+    full = chamfer_distance_matrix(clouds[first], "cuda", screen_chunks=SCREEN_C,
+                                   screen_k=SCREEN_C)
+    full_err = float(np.max(np.abs(full - exact[first, first])
+                            / np.maximum(np.abs(exact[first, first]), 1e-30)))
+    print(f"screened chamfer matrix (C={SCREEN_C}, k={SCREEN_K}): {rate:.1f} pair-evals/s "
+          f"beside the exact {exact_rate:.1f} ({pairs} pairs); entries over the exact: "
+          f"mean relative {rel.mean():.4g}, max {rel.max():.4g}, {int((rel > 0).sum())} of "
+          f"{rel.size} above it; per-class top-1 agreement {top1:.4f} (bar {SCREEN_TOP1}); "
+          f"k = C on {first.stop} clouds: max relative difference {full_err:.3g} (bar 1e-6)")
+    if not np.all(scr >= exact):
+        fail("a screened chamfer-matrix entry is below its exact value")
+    if not top1 >= SCREEN_TOP1:
+        fail(f"the screened matrix's per-class top-1 agreement is {top1}")
+    if not full_err <= 1e-6:
+        fail(f"the screened matrix at k = C differs from the exact one by {full_err}")
+    device_breakdown(lambda: chamfer_distance_matrix(
+        clouds[:16], "cuda", screen_chunks=SCREEN_C, screen_k=SCREEN_K),
+        "the screened matrix over 16 clouds (136 pairs, 2 blocks)")
     return rate
+
+
+def defense_stages(project, ae):
+    """The defense CLIs on the card after the attack's stages, in order."""
+    from geometric_adv_tpu_torch.cli import (
+        evaluate_defense,
+        get_knn_dists_per_point,
+        run_defense_critical,
+        run_defense_surface,
+    )
+
+    a = ["--project_dir", project, "--ae_folder", ae,
+         "--attack_pc_idx", f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy"]
+    dev = ["--device", "cuda"]
+    crit = ["--defense_folder", "defense_critical_res"]
+    return [
+        ("run_defense_critical", run_defense_critical.main,
+         a + dev + ["--do_sanity_checks", "1"]),
+        ("evaluate_defense critical", evaluate_defense.main, a + crit),
+        ("evaluate_defense critical, clean sources", evaluate_defense.main,
+         a + crit + ["--use_adversarial_data", "0"]),
+        ("get_knn_dists_per_point", get_knn_dists_per_point.main, a + dev),
+        ("run_defense_surface", run_defense_surface.main, a + dev),
+        ("evaluate_defense surface", evaluate_defense.main,
+         a + ["--defense_folder", "defense_surface_res"]),
+    ]
+
+
+def check_defense_artifacts(project, ae, n_points, bneck=128, knn=8):
+    """The defense artifacts with the JAX CLIs' shapes and dtypes, floats
+    finite, the defended S-RE finite, and the three eval_stats.txt."""
+    res = osp.join(project, ae, "eval", "attack_res")
+    pairs = 4 * (len(CLASSES) - 1) * 2
+    f32, i16 = np.dtype(np.float32), np.dtype(np.int16)
+    checked = 0
+    for c in CLASSES:
+        out_num = np.load(osp.join(res, "defense_surface_res", c,
+                                   "adversarial_critical_num.npy"))
+        out_max = max(int(out_num.max()), 1)
+        for folder, wide in (("defense_critical_res", bneck),
+                             ("defense_surface_res", out_max)):
+            want = {
+                f"{folder}/{c}/adversarial_critical_points.npy": ((1, pairs, wide, 3), f32),
+                f"{folder}/{c}/adversarial_critical_idx.npy": ((1, pairs, wide), i16),
+                f"{folder}/{c}/adversarial_critical_num.npy": ((1, pairs), i16),
+                f"{folder}/{c}/defended_pc_input.npy": ((1, pairs, n_points, 3), f32),
+                f"{folder}/{c}/defended_pc_recon.npy": ((1, pairs, n_points, 3), f32),
+                f"{folder}/{c}/defense_metrics.npy": ((1, pairs, 4), f32),
+                f"{folder}_orig/{c}/defended_source_input.npy": ((pairs, n_points, 3), f32),
+                f"{folder}_orig/{c}/defended_source_recon.npy": ((pairs, n_points, 3), f32),
+                f"{folder}_orig/{c}/defense_source_metrics.npy": ((pairs, 4), f32),
+                f"{folder}_orig/{c}/original_critical_num.npy": ((pairs,), i16),
+            }
+            orig_wide = bneck if folder == "defense_critical_res" else n_points
+            want[f"{folder}_orig/{c}/original_source_critical_points.npy"] = (
+                (pairs, orig_wide, 3), f32)
+            want[f"{folder}_orig/{c}/original_critical_idx.npy"] = ((pairs, orig_wide), i16)
+            if folder == "defense_surface_res":
+                want[f"{folder}/{c}/knn_dists_adversarial_pc_input.npy"] = (
+                    (1, pairs, n_points, knn), f32)
+                want[f"{folder}_orig/{c}/knn_dists_source_pc.npy"] = (
+                    (pairs, n_points, knn), f32)
+            for rel, (shape, dtype) in want.items():
+                a = np.load(osp.join(res, rel))
+                if a.shape != shape or a.dtype != dtype:
+                    fail(f"{rel}: {a.shape} {a.dtype}, expected {shape} {dtype}")
+                if dtype == f32 and not np.isfinite(a).all():
+                    fail(f"{rel}: non-finite values")
+            checked += len(want)
+    for folder in ("defense_critical_res", "defense_critical_res_orig",
+                   "defense_surface_res"):
+        stats = open(osp.join(res, folder, "over_classes", "eval_stats.txt")).read()
+        if "over classes" not in stats or "S-RE" not in stats:
+            fail(f"{folder}/over_classes/eval_stats.txt is incomplete")
+    print(f"defense artifacts of {ae}: {checked} checked (shapes, dtypes, finite "
+          "values: the defended S-RE included) and 3 eval_stats.txt")
+
+
+def check_defense_on_host(project, ae, victim):
+    """The critical defense against the host. Per class, from the same
+    adversarial inputs: the critical points of the card's per-channel
+    argmax equal the artifacts (the numpy code on the same inputs), and the
+    host CPU's argmax (the plain path) equals the card's except at near-ties,
+    channels where the card's point is within NEAR_TIE of the host's
+    maximum on the host (the two devices' GEMMs round differently); each
+    such flip is printed with its margin. The first class's kNN distances on
+    the host are bit-equal to the card's. Returns the critical defense's
+    mean S-RE, defended and not, and the flips."""
+    import copy
+
+    from geometric_adv_tpu_torch.attack.pipeline import get_quantity_at_index
+    from geometric_adv_tpu_torch.defense import (
+        get_critical_pc_non_critical_pc,
+        knn_dists_per_point,
+    )
+
+    host = copy.copy(victim)
+    host.model = copy.deepcopy(victim.model).cpu()
+    host.device = torch.device("cpu")
+    res = osp.join(project, ae, "eval", "attack_res")
+    sre, flips, channels = [], [], 0
+    for k, c in enumerate(CLASSES):
+        adv = np.load(osp.join(res, c, "adversarial_pc_input.npy"))
+        best = np.load(osp.join(res, c, "analysis_results",
+                                "source_target_norm_min_idx.npy"))
+        adv = get_quantity_at_index([adv], best)
+        card_idx, card_val = victim.get_pre_symmetry_argmax(adv)
+        _, ci, cn, _, _ = get_critical_pc_non_critical_pc(
+            adv, max_idx_all=card_idx, max_val_all=card_val)
+        card_ci = np.load(osp.join(res, "defense_critical_res", c,
+                                   "adversarial_critical_idx.npy"))[0]
+        card_cn = np.load(osp.join(res, "defense_critical_res", c,
+                                   "adversarial_critical_num.npy"))[0]
+        if not (np.array_equal(ci, card_ci) and np.array_equal(cn, card_cn)):
+            fail(f"the critical indices of {c} differ from its card's argmax's")
+        host_idx, _ = host.get_pre_symmetry_argmax(adv)
+        channels += host_idx.size
+        pre = host.get_pre_symmetry_data(adv)
+        for p, ch in np.argwhere(card_idx != host_idx):
+            top = pre[p, host_idx[p, ch], ch]
+            margin = float(top - pre[p, card_idx[p, ch], ch])
+            flips.append(margin / abs(top))
+            print(f"  argmax flip in {c}, cloud {p}, channel {ch}: host point "
+                  f"{host_idx[p, ch]}, card point {card_idx[p, ch]}, host margin "
+                  f"{margin:.3g} of {top:.6g}")
+            if not margin <= NEAR_TIE * abs(top):
+                fail(f"the card's argmax in {c} is not a near-tie on the host")
+        metrics = np.load(osp.join(res, "defense_critical_res", c, "defense_metrics.npy"))
+        sre.append(metrics[0, :, [0, 2]])
+        if k == 0:
+            knn_host = knn_dists_per_point(adv, "cpu")
+            knn_card = np.load(osp.join(res, "defense_surface_res", c,
+                                        "knn_dists_adversarial_pc_input.npy"))[0]
+            if not np.array_equal(knn_host, knn_card):
+                fail(f"the kNN distances of {c} on the card differ from the host's by "
+                     f"{np.abs(knn_host - knn_card).max()}")
+    sre = np.concatenate(sre, axis=1).mean(axis=1)
+    print(f"defense checks on the host: the critical indices of {len(CLASSES)} classes equal "
+          f"those of the card's argmax; the host's argmax equal to the card's on "
+          f"{channels - len(flips)} of {channels} channels, the {len(flips)} others "
+          f"near-ties (relative host margins {[float(f'{m:.3g}') for m in flips]}, bar "
+          f"{NEAR_TIE}); {CLASSES[0]}'s kNN distances bit-equal; critical defense mean "
+          f"S-RE {sre[0]:.6f} defended vs {sre[1]:.6f} undefended")
+    return sre, flips
+
+
+def device_breakdown(fn, label, top=6):
+    """torch.profiler over one call of ``fn`` after a warm-up: its device
+    time and the ``top`` kernels by device time. For the PyTorch
+    compositions, whose kernels are the library's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    if not rows:
+        print(f"profile of {label}: no device time recorded (not measured)")
+        return
+    busy = sum(r[1] for r in rows)
+    print(f"profile of {label}: device time {busy / 1e3:.3f} ms")
+    for key, us, count in rows[:top]:
+        print(f"  {100 * us / busy:5.1f}%  {us / 1e3:8.3f} ms  x{count:<5d} {key[:160]}")
+
+
+def knn_time(batch=100, k=9):
+    """``knn_point`` at the defense's batch of ``batch`` 2048-point clouds,
+    k + 1 = 9 against themselves (CUDA events around 3 calls), and its
+    device time by kernel."""
+    from geometric_adv_tpu_torch.ops.grouping import knn_point
+
+    x = surface_clouds(batch, N_POINTS, seed=8)[0]
+    knn_point(k, x[:4], x[:4])  # warm-up
+    ms = sync_timed(lambda: knn_point(k, x, x), 3)
+    print(f"knn_point at [{batch}, {N_POINTS}^2], k = {k}: {ms:.3f} ms a call")
+    device_breakdown(lambda: knn_point(k, x, x), f"knn_point at [{batch}, {N_POINTS}^2]")
+    return ms
+
+
+def binary_search_check(project, ae, victim, counters, required, pairs=8,
+                        steps=3, iters=50):
+    """``binary_search_attack`` on ``pairs`` pairs of the first class's pair
+    grid, ``steps`` steps of ``iters`` iterations, in a leg of its own
+    (``required`` kernels must launch): finite outputs, final weights within
+    [0, the upper bound], and every final best_dist <= the first step's, which
+    is ``attack_batch`` at the initial weight tracked by loss_dist."""
+    from geometric_adv_tpu_torch.attack.core import attack_batch, binary_search_attack
+    from geometric_adv_tpu_torch.cli.common import AttackContext
+
+    ctx = AttackContext(project, ae,
+                        attack_pc_idx=f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy")
+    src, tgt = (a[:pairs] for a in ctx.class_attack_data(CLASSES[0], ctx.point_clouds))
+    tz = ctx.class_attack_data(CLASSES[0], ctx.latent_vectors)[1][:pairs]
+    model = victim.model
+    init, upper = 10.0, 100.0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    first = attack_batch(model.encode, model.decode, t(src), t(tz), t(tgt),
+                         torch.ones(pairs, device="cuda"), np.full((1, pairs), init, np.float32),
+                         num_iterations=iters, num_iterations_thresh=1, track_by="loss_dist")
+    t0 = time.time()
+    counts, out = leg("binary search", counters, lambda: binary_search_attack(
+        model.encode, model.decode, src, tz, tgt, device="cuda", init_dist_weight=init,
+        upper_bound_dist_weight=upper, binary_search_step=steps, num_iterations=iters),
+        required)
+    seconds = time.time() - t0
+    best_adv, best_dist, best_pc, weight = out
+    first_dist = first.metrics[0, :, 1]
+    print(f"binary_search_attack ({pairs} pairs, {steps} steps x {iters} iterations) in "
+          f"{seconds:.2f} s: best_dist {best_dist.tolist()} (first step "
+          f"{first_dist.tolist()}), weights {weight.tolist()}")
+    if not all(np.isfinite(a).all() for a in out):
+        fail("binary_search_attack returned non-finite values")
+    if not ((weight >= 0) & (weight <= upper)).all():
+        fail(f"binary_search_attack's weights left [0, {upper}]: {weight}")
+    if not (best_dist <= first_dist).all():
+        fail("binary_search_attack's best_dist is above its first step's")
+    return counts
+
+
+def check_trace(trace_dir, kernels):
+    """The trace of ``run_attack --trace_dir`` exists and names ``kernels``
+    (the port's own, by their function names)."""
+    from geometric_adv_tpu_torch.utils.profiling import TRACE_FILE
+
+    path = osp.join(trace_dir, TRACE_FILE)
+    text = open(path).read()
+    named = {k: f"::{k}" in text for k in kernels}
+    print(f"trace {path}: {len(text)} bytes, the port's kernels named: {named}")
+    if not all(named.values()):
+        fail(f"the trace of run_attack --trace_dir misses a kernel: {named}")
 
 
 def main() -> int:
@@ -1121,8 +1432,43 @@ def main() -> int:
     print(f"chamfer attack {rates['chamfer attack pair-iters/s']:.1f} pair-iters/s "
           f"({n_pairs} pairs x 500 iterations in {seconds:.2f} s, stage wall "
           f"clock less the calibration's {calib_s:.2f} s)")
-    rates["chamfer matrix pair-evals/s"] = chamfer_matrix_rate(project, "data/synthetic")
+    exact_rate, clouds, exact, slice_idx = chamfer_matrix_rate(project, "data/synthetic")
+    rates["chamfer matrix pair-evals/s"] = exact_rate
     rates["reference-batch attack pair-iters/s"] = attack_at_reference_batch(victim)
+
+    # --- the defenses on the chamfer victim's attack ------------------------
+    # the victim's no-grad loss: K1 where it routes composed, K2 where fused
+    fused_loss = ch._takes_fused(torch.empty(1, N_POINTS, 3, device="cuda"), "auto")
+    counts, stages = leg("defense", counters, lambda: run_stages(
+        defense_stages(project, ae)),
+        ("nn_distance_values_cuda" if fused_loss else "nn_distance_cuda",))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    if counts["emd_sweep_block_cuda"] or counts["emd_sweep_tiled_cuda"]:
+        fail(f"the defense leg launched an EMD kernel: {counts}")
+    check_defense_artifacts(project, ae, N_POINTS)
+    check_defense_on_host(project, ae, victim)
+    rates["defense stage seconds"] = {k: v[0] for k, v in stages.items()}
+    rates["knn_point ms at [100, 2048^2], k 9"] = knn_time()
+    rates["screened chamfer matrix pair-evals/s"] = screened_matrix_check(
+        clouds, exact, exact_rate, slice_idx)
+    del clouds, exact
+
+    # --- binary_search_attack, and a traced run_attack ----------------------
+    # with gradients at 2048 points the attack's chamfer routes composed
+    # (K1 + K3) unless the fused loss is forced on
+    fused_attack = ch._fused_loss_supported(N_POINTS)
+    counts = binary_search_check(
+        project, ae, victim, counters,
+        ("chamfer_loss_payloads_cuda",) if fused_attack
+        else ("nn_distance_cuda", "chamfer_grad1_cuda"))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    trace_dir = osp.join(project, "trace")
+    counts, _ = leg("traced attack", counters, lambda: run_stages([
+        attack_stage(project, ae, (20, 10), "attack_res_trace",
+                     ["--trace_dir", trace_dir, "--chamfer_impl", "composed"])]),
+        ("nn_distance_cuda", "chamfer_grad1_cuda"))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    check_trace(trace_dir, ("nn_kernel", "grad1_kernel"))
     del victim
     torch.cuda.synchronize()
 
@@ -1263,7 +1609,7 @@ def main() -> int:
 
     for k in ("chamfer_grad1_vpu_cuda", "nn_direction_hier_cuda", "hier_prep_cuda"):
         launches[k] = phase_counts[k]
-    print("launches over the seven legs (K4, K8 and its preparation: the kernel "
+    print("launches over the legs (K4, K8 and its preparation: the kernel "
           f"phase's): {launches}")
     print("rates: " + json.dumps(rates))
     kernels = []

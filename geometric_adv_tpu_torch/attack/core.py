@@ -41,8 +41,10 @@ Semantic parity notes:
 - frozen mode records the frozen (majorizing) chamfer values between
   refreshes, the JAX package's documented deviation (PARITY.md #13).
 
-Not ported: the sparse encoder VJP (ROADMAP Queue 1 item 16), meshes
-(item 17) and ``binary_search_attack``.
+``binary_search_attack`` is the per-example dist-weight search (reference:
+src/adv_ae.py:253-304) over ``attack_batch`` with [1, B] weights, tracked
+by ``loss_dist``. Not ported: the sparse encoder VJP (ROADMAP Queue 1 item
+6) and meshes (item 7).
 """
 
 from __future__ import annotations
@@ -294,7 +296,7 @@ def attack_batch(
     target_latent: torch.Tensor,  # [B, z]
     target_pc: torch.Tensor,  # [B, m, 3]
     target_ae_loss_ref: torch.Tensor,  # [B]
-    dist_weights,  # [W]
+    dist_weights,  # [W] or [W, B]
     *,
     num_iterations: int = 500,
     num_iterations_thresh: int = 400,
@@ -305,12 +307,19 @@ def attack_batch(
     max_point_pert_weight: float = 0.0,
     max_point_dist_weight: float = 0.0,
     pert0: torch.Tensor | None = None,
+    track_by: str = "t_re",
     chamfer_method: str = "auto",
     chamfer_refresh: int = 0,
 ) -> AttackOutputs:
     """Run the full attack for one batch of pairs, all dist weights at once.
 
-    All tensors live on one device. ``pert0`` ([B, n, 3]) replaces the
+    All tensors live on one device. ``dist_weights`` is [W] (one weight a
+    run, the standard attack) or [W, B] (per-example weights, the
+    binary-search variant). ``track_by`` is the best-so-far key, "t_re"
+    (the main attack, reference: src/adv_ae.py:239) or "loss_dist" (the
+    binary-search variant, :283-290): the best rows are those of its
+    strictly smallest value, and the key is what the metrics' last column
+    holds, as in the JAX package. ``pert0`` ([B, n, 3]) replaces the
     seeded init, the same for every weight as in the JAX package.
     ``chamfer_method`` routes the exact mode's chamfers; ``chamfer_refresh``
     = N > 0 runs frozen mode: the steps t = 0..num_iterations are cut into
@@ -336,11 +345,8 @@ def attack_batch(
     weights = torch.as_tensor(
         np.asarray(dist_weights, np.float32), device=device
     )
-    if weights.dim() != 1:
-        raise NotImplementedError(
-            "per-example dist weights (the binary-search variant) are not "
-            "ported yet"
-        )
+    if track_by not in ("t_re", "loss_dist"):
+        raise ValueError(f"unknown track_by {track_by!r}")
     w_count, (b, n, _) = weights.shape[0], source_pc.shape
     m = target_pc.shape[1]
 
@@ -349,7 +355,13 @@ def attack_batch(
 
     x, tz, gt, ref = (fold(t) for t in (
         source_pc, target_latent, target_pc, target_ae_loss_ref))
-    dist_weight = weights.repeat_interleave(b)
+    if weights.dim() == 1:
+        dist_weight = weights.repeat_interleave(b)
+    elif weights.shape == (w_count, b):
+        dist_weight = weights.reshape(-1)
+    else:
+        raise ValueError(f"dist_weights of shape {tuple(weights.shape)} for "
+                         f"{b} pairs")
     if pert0 is None:
         pert0 = init_pert((b, n, 3), device)
     pert = fold(pert0.to(device=device, dtype=torch.float32))
@@ -379,8 +391,9 @@ def attack_batch(
             grads = None if last else torch.autograd.grad(total, pert)[0]
         with torch.no_grad():
             if t >= thresh:
-                better = aux["t_re"] < best_key  # strict <
-                best_key = torch.where(better, aux["t_re"], best_key)
+                key = aux[track_by]
+                better = key < best_key  # strict <
+                best_key = torch.where(better, key, best_key)
                 metrics = torch.stack(
                     [aux["loss_adv"], aux["loss_dist"], aux["source_chamfer"],
                      aux["t_re"] / ref], dim=-1,
@@ -600,3 +613,72 @@ class AttackRunner:
             np.concatenate([o.pc_input for o in outs], axis=1),
             np.concatenate([o.pc_recon for o in outs], axis=1),
         )
+
+
+def binary_search_attack(
+    encode: Callable[[torch.Tensor], torch.Tensor],
+    decode: Callable[[torch.Tensor], torch.Tensor],
+    source_pc,
+    target_latent,
+    target_pc,
+    *,
+    device="cuda",
+    init_dist_weight: float = 10.0,
+    upper_bound_dist_weight: float = 100.0,
+    binary_search_step: int = 10,
+    num_iterations: int = 500,
+    learning_rate: float = 0.01,
+    loss_adv_type: str = "chamfer",
+    loss_dist_type: str = "chamfer",
+    ae_loss_type: str = "chamfer",
+):
+    """Per-example binary search over the dist weight
+    (reference: src/adv_ae.py:253-304, ``_attack_one_batch_binary_step``;
+    the JAX package's attack/core.py:835-914).
+
+    Each outer step runs the whole attack on ``device`` with per-example
+    weights [1, B], recording from the first iteration by ``loss_dist``
+    (strict <), keeps the best by loss_dist over the steps, and bisects: a
+    step whose best matches the updated global best counts as a success and
+    raises the lower bound, otherwise the upper bound drops.
+
+    Returns numpy (out_best_adv_loss [B], out_best_dist [B],
+    out_best_attack [B, n, 3], final dist_weight [B]).
+    """
+    source_pc = np.asarray(source_pc, np.float32)
+    b = len(source_pc)
+    lower = np.zeros(b, np.float32)
+    weight = np.full(b, init_dist_weight, np.float32)
+    upper = np.full(b, upper_bound_dist_weight, np.float32)
+
+    out_best_adv = np.full(b, 1e10, np.float32)
+    out_best_dist = np.full(b, 1e10, np.float32)
+    out_best_attack = np.ones_like(source_pc)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    inputs = (dev(source_pc), dev(target_latent), dev(target_pc),
+              torch.ones(b, device=device))  # the T-NRE normalisation is unused
+    for _ in range(binary_search_step):
+        out = attack_batch(
+            encode, decode, *inputs, weight[None, :],
+            num_iterations=num_iterations, num_iterations_thresh=1,
+            learning_rate=learning_rate, loss_adv_type=loss_adv_type,
+            loss_dist_type=loss_dist_type, ae_loss_type=ae_loss_type,
+            track_by="loss_dist",
+        )
+        best_adv = out.metrics[0, :, 0]  # loss_adv at the best dist
+        best_dist = out.metrics[0, :, 1]
+        improved = best_dist < out_best_dist
+        out_best_dist = np.where(improved, best_dist, out_best_dist)
+        out_best_adv = np.where(improved, best_adv, out_best_adv)
+        out_best_attack = np.where(improved[:, None, None], out.pc_input[0],
+                                   out_best_attack)
+
+        success = best_dist <= out_best_dist
+        lower = np.where(success, np.maximum(lower, weight), lower)
+        upper = np.where(~success, np.minimum(upper, weight), upper)
+        weight = (lower + upper) / 2.0
+
+    return out_best_adv, out_best_dist, out_best_attack, weight

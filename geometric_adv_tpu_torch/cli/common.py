@@ -1,6 +1,6 @@
 """Shared CLI plumbing: device selection, eval-artifact loading and the
 attack context (``geometric_adv_tpu/cli/common.py`` without its multi-host
-wiring, which is ROADMAP Queue 1 item 17).
+wiring, which is ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def list_files(data_path: str):
 
 
 class AttackContext:
-    """Everything the attack stages share."""
+    """Everything the attack and defense stages share."""
 
     def __init__(self, project_dir, ae_folder, attack_folder=None,
                  attack_pc_idx=None, num_pc_for_attack=None):
@@ -75,6 +75,12 @@ class AttackContext:
         )
         if not np.all(self.ae_loss > 0):
             raise ValueError("not all autoencoder loss values are larger than 0")
+        try:  # the defense's replay checks read them
+            self.reconstructions = load_data(
+                self.data_path, self.files, ["reconstructions_test_set"]
+            )
+        except FileNotFoundError:
+            self.reconstructions = None
 
         self.attack_dir = (
             osp.join(self.data_path, attack_folder) if attack_folder else None

@@ -6,6 +6,10 @@ Per class: pick the best dist weight per attack by the minimal
 class) and untargeted (best class) selections, count off-surface points
 (dist > 0.05), save the analysis index artifacts every later stage consumes,
 and write over_classes/eval_stats.txt + targeted/untargeted reports.
+``--save_pc_plots`` draws the best targeted attacks of up to 5 sources a
+class, else ``--save_graphs`` each class's targeted heatmap
+(``utils/plots.py``: matplotlib, seaborn and pandas, imported by the plot
+call alone).
 """
 
 import argparse
@@ -17,12 +21,13 @@ from geometric_adv_tpu_torch.attack.pipeline import (
     get_quantity_for_targeted_untargeted_attack,
 )
 from geometric_adv_tpu_torch.cli.common import AttackContext, ensure_dir
+from geometric_adv_tpu_torch.utils import plots
 from geometric_adv_tpu_torch.utils.stats import write_attack_statistics_to_file
 
 OUTLIER_THRESH = 0.05  # reference: evaluate_attack.py:45
 
 
-def analyse_class(ctx, pc_class_name):
+def analyse_class(ctx, i, pc_class_name, save_plots=False):
     """The per-class block of reference: evaluate_attack.py:102-227."""
     conf = ctx.conf
     load_dir = osp.join(ctx.attack_dir, pc_class_name)
@@ -85,6 +90,40 @@ def analyse_class(ctx, pc_class_name):
             q, norm_min_idx, per_tc_idx, all_idx
         )
 
+    if save_plots == "pc":
+        # 3-panel source / adversarial / recon plots of each targeted best
+        # attack (reference: evaluate_attack.py:289-327)
+        adv_input = np.load(osp.join(load_dir, "adversarial_pc_input.npy"))
+        adv_recon = np.load(osp.join(load_dir, "adversarial_pc_recon.npy"))
+        source_pc, _ = ctx.class_attack_data(pc_class_name, ctx.point_clouds)
+        plots_dir = ensure_dir(osp.join(save_dir, "best_attacks"))
+        for j in range(min(num_instance, 5)):
+            for k in range(num_target_classes):
+                a = j * num_attack_per_instance + k * conf.num_pc_for_target \
+                    + int(per_tc_idx[j, k])
+                w = int(norm_min_idx[a])
+                plots.plot_attack_triplet(
+                    source_pc[a], adv_input[w, a], adv_recon[w, a],
+                    osp.join(plots_dir, f"adv_{pc_class_name}_{j}_t{k}.png"),
+                )
+    elif save_plots:
+        graphs_dir = ensure_dir(osp.join(save_dir, "stats"))
+        target_names = [
+            str(n) for n in ctx.pc_classes
+            if str(n) in conf.class_names and str(n) != pc_class_name
+        ]
+        col_names = list(np.insert(np.array(target_names), i, pc_class_name))
+        rows_label = [f"{pc_class_name}_{d}" for d in range(num_instance)]
+        mat = np.insert(
+            per_tc_val, i, np.zeros([1, num_instance]), axis=1
+        )
+        plots.plot_heatmap_graph(
+            mat, rows_label, col_names, pc_class_name, "Target Class",
+            "Source Index", ".5f",
+            osp.join(graphs_dir, "targeted_source_target_norm_min.png"),
+            (len(col_names), len(rows_label)),
+        )
+
     return {
         "norm_min_targeted": per_tc_val,
         "norm_min_untargeted": all_val,
@@ -102,11 +141,6 @@ def main(argv=None):
     parser.add_argument("--save_pc_plots", type=int, default=0)
     flags = parser.parse_args(argv)
     print("Evaluate attack flags:", flags)
-    if flags.save_graphs or flags.save_pc_plots:
-        raise NotImplementedError(
-            "--save_graphs / --save_pc_plots: the plots (matplotlib) are not "
-            "ported yet"
-        )
 
     ctx = AttackContext(
         flags.project_dir, flags.ae_folder,
@@ -123,9 +157,10 @@ def main(argv=None):
 
     with open(osp.join(over_dir, "targeted_attacks.txt"), "w", 1) as ftar, \
             open(osp.join(over_dir, "untargeted_attacks.txt"), "w", 1) as funtar:
-        for _, pc_class_name in ctx.classes_iter():
+        for i, pc_class_name in ctx.classes_iter():
             print(f"evaluate shape class {pc_class_name}")
-            res = analyse_class(ctx, pc_class_name)
+            plot_mode = "pc" if flags.save_pc_plots else bool(flags.save_graphs)
+            res = analyse_class(ctx, i, pc_class_name, plot_mode)
             class_names.append(pc_class_name)
             agg_t["norm"].append(res["norm_min_targeted"])
             agg_u["norm"].append(res["norm_min_untargeted"])

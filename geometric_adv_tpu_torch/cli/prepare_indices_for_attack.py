@@ -34,7 +34,8 @@ def main(argv=None):
     parser.add_argument("--num_instance_per_class", type=int, default=100)
     parser.add_argument("--pair_block", type=int, default=512)
     parser.add_argument("--blocks_per_chunk", type=int, default=256)
-    # > 0 selects the chunk-screened matrix, which is not ported yet
+    # chunk-screened mode for the chamfer matrix (0 = exact, the parity
+    # default; PARITY #14): C chunks a cloud, k scanned a point
     parser.add_argument("--chamfer_screen_chunks", type=int, default=0)
     parser.add_argument("--chamfer_screen_k", type=int, default=8)
     add_device_flag(parser)
@@ -74,6 +75,7 @@ def main(argv=None):
             point_clouds, device, pair_block=flags.pair_block,
             blocks_per_chunk=flags.blocks_per_chunk, progress=True,
             screen_chunks=flags.chamfer_screen_chunks,
+            screen_k=flags.chamfer_screen_k,
         )
         n_pairs = len(point_clouds) * (len(point_clouds) + 1) // 2
         dt = time.time() - t0

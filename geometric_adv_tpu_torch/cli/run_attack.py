@@ -8,9 +8,12 @@ EMD) selects the attack's losses. ``--chamfer_impl fused|composed`` forces
 the chamfer route (else the runner calibrates on the card) and
 ``--chamfer_refresh N`` runs the frozen-assignment mode; the runner's
 routing is written to ``attack_impl.json``. Flags keep the JAX stage's
-names; a value that selects work the port does not have yet raises."""
+names; a value that selects work the port does not have yet raises.
+``--trace_dir`` writes a torch.profiler trace of the first class's attack
+(``utils/profiling.py``)."""
 
 import argparse
+import contextlib
 import json
 import os.path as osp
 
@@ -27,14 +30,14 @@ from geometric_adv_tpu_torch.cli.common import (
     restore_victim,
 )
 from geometric_adv_tpu_torch.utils.artifacts import load_data
+from geometric_adv_tpu_torch.utils.profiling import trace
 
 
 def _reject_unported(flags, device) -> None:
     unported = {
-        "--encoder_vjp sparse (ROADMAP Queue 1 item 16)":
+        "--encoder_vjp sparse (ROADMAP Queue 1 item 6)":
             flags.encoder_vjp == "sparse",
-        "--trace_dir (device traces)": flags.trace_dir is not None,
-        "--use_mesh 1 on more than one device (ROADMAP Queue 1 item 17)":
+        "--use_mesh 1 on more than one device (ROADMAP Queue 1 item 7)":
             bool(flags.use_mesh) and device.type == "cuda"
             and torch.cuda.device_count() > 1,
     }
@@ -88,7 +91,11 @@ def main(argv=None):
     )
     parser.add_argument("--encoder_vjp", type=str, default="auto",
                         choices=["auto", "sparse", "dense"])
-    parser.add_argument("--trace_dir", type=str, default=None)
+    parser.add_argument(
+        "--trace_dir", type=str, default=None,
+        help="write a torch.profiler trace of the first class's attack "
+        "into this directory (open with ui.perfetto.dev)",
+    )
     add_device_flag(parser)
     flags = parser.parse_args(argv)
     print("Run attack flags:", flags)
@@ -181,12 +188,17 @@ def main(argv=None):
         )
         target_ae_loss_ref = target_ae_loss_ref.reshape(-1)
 
+        trace_cm = contextlib.nullcontext()
+        if flags.trace_dir is not None and i == 0:
+            print(f"tracing this class's attack into {flags.trace_dir}")
+            trace_cm = trace(flags.trace_dir, device)
         with open(osp.join(save_dir, "attack_stats.txt"), "a", 1) as fout:
             fout.write(f"Attack flags: {flags}\n")
-            out = runner.attack(
-                source_pc, target_latent, target_pc, target_ae_loss_ref,
-                log_file=fout,
-            )
+            with trace_cm:
+                out = runner.attack(
+                    source_pc, target_latent, target_pc, target_ae_loss_ref,
+                    log_file=fout,
+                )
 
         np.save(osp.join(save_dir, "adversarial_metrics"), out.metrics)
         np.save(osp.join(save_dir, "adversarial_pc_input"), out.pc_input)

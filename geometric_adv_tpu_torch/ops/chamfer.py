@@ -38,12 +38,29 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"the ops run on cuda or cpu tensors, got {t.device}")
 
 
-def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """[..., n, m] squared distances, ((dx*dx) + (dy*dy)) + (dz*dz) exactly
-    as the CUDA kernels form them (the JAX package's "direct" method)."""
-    d = x[..., :, None, :] - y[..., None, :, :]
-    sq = d * d
-    return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+def _sum_last(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis, as ((t0 + t1) + t2) where it has 3 entries."""
+    if t.shape[-1] != 3:
+        return t.sum(dim=-1)
+    return (t[..., 0] + t[..., 1]) + t[..., 2]
+
+
+def pairwise_sqdist(x: torch.Tensor, y: torch.Tensor,
+                    method: str = "direct") -> torch.Tensor:
+    """[..., n, m] squared distances between [..., n, c] and [..., m, c].
+
+    "direct": ((dx*dx) + (dy*dy)) + (dz*dz) at c = 3, exactly as the CUDA
+    kernels form them. "mxu": |x|^2 + |y|^2 - 2 x.y^T through ``torch.matmul``,
+    clamped at 0 (the JAX package's ops/chamfer.py:57-65; full float32
+    where TF32 is off, as ``cli.common.resolve_device`` sets)."""
+    if method == "direct":
+        d = x[..., :, None, :] - y[..., None, :, :]
+        return _sum_last(d * d)
+    if method == "mxu":
+        xy = torch.matmul(x, y.transpose(-1, -2))
+        d = _sum_last(x * x)[..., :, None] + _sum_last(y * y)[..., None, :] - 2.0 * xy
+        return torch.clamp_min(d, 0.0)
+    raise ValueError(f"unknown pairwise_sqdist method: {method!r}")
 
 
 def nn_distance_plain(xyz1: torch.Tensor, xyz2: torch.Tensor):

@@ -6,7 +6,7 @@ numpy/json dataclass, in the same ``configuration.json`` schema: either
 package loads what the other saved (pinned by ``tests/test_torch_imports.py``).
 ``default_train_params`` is copied too. Not copied yet, as nothing in the
 port calls them: ``from_reference_txt`` (the reference-checkpoint importers,
-ROADMAP Queue 1 item 15), ``copy``, ``exists_and_is_not_none`` and
+ROADMAP Queue 1 item 4), ``copy``, ``exists_and_is_not_none`` and
 ``resolved_n_output``.
 """
 

@@ -10,8 +10,8 @@ Python loop over batches with the data resident on the device, in the order
 of an on-device permutation drawn from a generator seeded with the epoch's
 number, so that a resumed run continues exactly. Inference runs in eval mode
 in batches of 250 clouds under ``no_grad``; results come back as numpy.
-Not ported: the mesh (ROADMAP Queue 1 item 17), ``evaluate``,
-``embedding_at_layer``, ``interpolate`` and ``get_pre_symmetry_*``.
+Not ported: the mesh (ROADMAP Queue 1 item 7), ``evaluate``,
+``embedding_at_layer`` and ``interpolate`` (item 5).
 """
 
 from __future__ import annotations
@@ -277,6 +277,29 @@ class AETrainer:
         return self._batched_forward(
             pclouds, batch_size=batch_size, outputs=("z",)
         )["z"]
+
+    def get_pre_symmetry_data(self, pclouds, batch_size=250):
+        return self._batched_forward(
+            pclouds, batch_size=batch_size, outputs=("pre",)
+        )["pre"]
+
+    @torch.no_grad()
+    def get_pre_symmetry_argmax(self, pclouds, batch_size=250):
+        """Per-channel (argmax [N, bneck] int32, max [N, bneck]) over the
+        points of the pre-symmetry features, reduced on the device so that
+        only [N, bneck] crosses to the host, not the [N, n, bneck] map.
+        ``torch.argmax`` takes the first maximal index, as ``jnp.argmax``."""
+        self.model.eval()
+        idxs, vals = [], []
+        for s in range(0, len(pclouds), batch_size):
+            xb = torch.as_tensor(
+                np.asarray(pclouds[s : s + batch_size], np.float32),
+                device=self.device,
+            )
+            pre = self.model.encoder(xb)
+            idxs.append(pre.argmax(dim=-2).to(torch.int32).cpu().numpy())
+            vals.append(pre.amax(dim=-2).cpu().numpy())
+        return np.concatenate(idxs), np.concatenate(vals)
 
     def get_loss_per_pc(self, feed_data, orig_data=None, batch_size=250):
         return self._batched_forward(

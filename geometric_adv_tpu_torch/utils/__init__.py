@@ -1,2 +1,3 @@
-"""The ``.npy`` artifact store and the eval_stats writer (copies of
-``geometric_adv_tpu.utils``' numpy-only modules, pinned by tests)."""
+"""The ``.npy`` artifact store, the eval_stats writers and the report plots
+(copies of ``geometric_adv_tpu.utils``' modules that need no JAX, pinned by
+tests), and the device traces."""

@@ -1,6 +1,6 @@
-"""The attack eval_stats writer — copied from
+"""The attack and defense eval_stats writers — copied from
 ``geometric_adv_tpu/utils/stats.py`` (byte format of reference:
-src/adversary_utils.py:181-219), pinned by ``tests/test_torch_imports.py``.
+src/adversary_utils.py:181-257), pinned by ``tests/test_torch_imports.py``.
 """
 
 from __future__ import annotations
@@ -43,5 +43,37 @@ def write_attack_statistics_to_file(
             np.vstack(source_chamfer_list).mean(),
             np.vstack(target_chamfer_list).mean(),
             np.vstack(target_nre_list).mean(),
+        )
+    )
+
+
+def write_defense_statistics_to_file(
+    fout, classes_for_attack, def_source_chamfer_list, def_source_nre_list,
+    adv_source_chamfer_list, adv_source_nre_list,
+):
+    """reference: src/adversary_utils.py:222-257."""
+    fout.write("Shape\t\tDef\t\tDef\t\tAdv\t\tAdv\n")
+    fout.write("Class\t\tS-RE\t\tS-NRE\t\tS-RE\t\tS-NRE\n")
+    fout.write("\n")
+    for c, name in enumerate(classes_for_attack):
+        fout.write(
+            "%s%.5f\t\t%.2f\t\t%.5f\t\t%.2f\n"
+            % (
+                _pad(name),
+                def_source_chamfer_list[c].mean(),
+                def_source_nre_list[c].mean(),
+                adv_source_chamfer_list[c].mean(),
+                adv_source_nre_list[c].mean(),
+            )
+        )
+    fout.write("\n")
+    fout.write(
+        "%s%.5f\t\t%.2f\t\t%.5f\t\t%.2f\n"
+        % (
+            _pad("over classes"),
+            np.vstack(def_source_chamfer_list).mean(),
+            np.vstack(def_source_nre_list).mean(),
+            np.vstack(adv_source_chamfer_list).mean(),
+            np.vstack(adv_source_nre_list).mean(),
         )
     )

@@ -49,6 +49,11 @@ CASES = {
                                                loss_dist_type="pert")),
     "max_point_dist": dict(weights=[1.0], kw=dict(max_point_dist_weight=0.5)),
     "emd": dict(weights=[0.5, 2.0], kw=dict(ae_loss_type="emd", loss_dist_type="pert")),
+    # per-example weights [W, B], the binary-search variant's
+    "per_example_weights": dict(weights=[[0.5, 1.0, 4.0], [2.0, 0.1, 1.0]], kw={}),
+    "per_example_by_loss_dist": dict(weights=[[10.0, 3.0, 0.5]],
+                                     kw=dict(track_by="loss_dist")),
+    "track_by_loss_dist": dict(weights=[0.5, 2.0], kw=dict(track_by="loss_dist")),
 }
 
 
@@ -155,7 +160,6 @@ def test_init_pert_is_seeded_truncated_normal():
 
 @pytest.mark.parametrize("flags", [
     ["--encoder_vjp", "sparse"],
-    ["--trace_dir", "trace"],
     ["--matmul_precision", "bfloat16"],
 ])
 def test_run_attack_rejects_unported_flag_values(flags):
@@ -166,3 +170,38 @@ def test_run_attack_rejects_unported_flag_values(flags):
     with pytest.raises(NotImplementedError):
         run_attack.main(["--attack_pc_idx", "unused.npy", "--device", "cpu",
                          *flags])
+
+
+def test_binary_search_attack_matches_jax(monkeypatch):
+    """binary_search_attack on the bridged tiny victim with JAX's init_pert
+    draw: the final per-example weights equal, best_dist at rtol 2e-4, the
+    rest at the attack's bars."""
+    from geometric_adv_tpu.attack.core import binary_search_attack as jax_bsa
+
+    monkeypatch.setattr(core, "init_pert", lambda shape, device, stddev=1e-7, seed=55:
+                        torch.tensor(np.asarray(jax_init_pert(shape, stddev, seed))))
+    encode, decode, model = tiny_victims()
+    rng = np.random.RandomState(5)
+    x, gt = (rng.rand(3, 32, 3).astype(np.float32) for _ in range(2))
+    tz = np.array(encode(gt))
+    kw = dict(binary_search_step=4, num_iterations=12, init_dist_weight=10.0,
+              upper_bound_dist_weight=100.0)
+    want = [np.asarray(a) for a in jax_bsa(encode, decode, x, tz, gt, **kw)]
+    got = core.binary_search_attack(model.encode, model.decode, x, tz, gt,
+                                    device="cpu", **kw)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    np.testing.assert_array_equal(got[3], want[3])
+    np.testing.assert_allclose(got[1], want[1], rtol=2e-4, atol=0)
+    np.testing.assert_allclose(got[0], want[0], rtol=2e-4, atol=1e-6)
+    np.testing.assert_allclose(got[2], want[2], atol=1e-5)
+
+
+def test_attack_batch_rejects_mismatched_weights():
+    _, _, model = tiny_victims()
+    x = torch.rand(3, 32, 3)
+    with pytest.raises(ValueError, match="dist_weights of shape"):
+        core.attack_batch(model.encode, model.decode, x, model.encode(x), x,
+                          torch.ones(3), [[1.0, 2.0]], num_iterations=2)
+    with pytest.raises(ValueError, match="unknown track_by"):
+        core.attack_batch(model.encode, model.decode, x, model.encode(x), x,
+                          torch.ones(3), [1.0], num_iterations=2, track_by="s_cd")

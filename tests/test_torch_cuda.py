@@ -549,3 +549,68 @@ def test_k7_skips_and_their_numerics(cuda):
     share = counts.cpu().double() / pairs
     assert share[0].min() > 0.3 and (share[-1] == 0).all()
     assert (share <= 1).all()
+
+
+def surface_batch(b, n, seed):
+    from geometric_adv_tpu_torch.data.synthetic import SHAPE_CLASSES, sample_shape
+
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(np.stack([
+        sample_shape(SHAPE_CLASSES[i % len(SHAPE_CLASSES)], n, rng) for i in range(b)
+    ]).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,n,k", [(4, 2048, 9), (3, 300, 300), (100, 2048, 9)])
+def test_knn_point_on_card_bit_equal_to_host(cuda, b, n, k):
+    """The defense's kNN (k + 1 against itself) on the card: distances and
+    indices bit-equal to the host's; at [100, 2048^2] in blocks of queries."""
+    from geometric_adv_tpu_torch.ops.grouping import knn_point
+
+    pcs = surface_batch(b, n, seed=b)
+    pcs[:, 1] = pcs[:, 9]
+    if b == 100:  # the host's plane at this size is slow: check 4 clouds
+        host = knn_point(k, pcs[:4], pcs[:4])
+        card = knn_point(k, pcs.to(cuda), pcs.to(cuda))
+        card = tuple(t[:4] for t in card)
+    else:
+        host = knn_point(k, pcs, pcs)
+        card = knn_point(k, pcs.to(cuda), pcs.to(cuda))
+    for g, w in zip(card, host):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_screened_matrix_on_card_matches_host(cuda):
+    """The chunk-screened matrix on the card within the CPU tests' bar of
+    the host's (rtol 1e-6, atol 1e-7), every entry >= the card's exact one,
+    and with k = C equal to it at rtol 1e-6."""
+    from geometric_adv_tpu_torch.ops.pairwise import chamfer_distance_matrix
+
+    pcs = surface_batch(12, 2048, seed=3).numpy()
+    host = chamfer_distance_matrix(pcs, "cpu", screen_chunks=64, screen_k=8)
+    card = chamfer_distance_matrix(pcs, cuda, screen_chunks=64, screen_k=8)
+    np.testing.assert_allclose(card, host, rtol=1e-6, atol=1e-7)
+    exact = chamfer_distance_matrix(pcs, cuda)
+    assert np.all(card >= exact)
+    full = chamfer_distance_matrix(pcs[:4], cuda, screen_chunks=64, screen_k=64)
+    np.testing.assert_allclose(full, exact[:4, :4], rtol=1e-6, atol=0)
+
+
+def test_pre_symmetry_argmax_on_card_matches_host(cuda):
+    """get_pre_symmetry_argmax on the card against the host's on channels
+    whose maximum leads the runner-up by more than 1e-4 of it (the card's
+    and the host's GEMMs round differently); most channels qualify."""
+    from geometric_adv_tpu_torch.train.config import Configuration
+    from geometric_adv_tpu_torch.train.trainer import AETrainer
+
+    host = AETrainer(Configuration(n_input=[2048, 3]), "cpu")
+    card = AETrainer(Configuration(n_input=[2048, 3]), cuda)
+    card.model.load_state_dict(host.model.state_dict())
+    pcs = surface_batch(12, 2048, seed=4).numpy()
+    want_idx, want_val = host.get_pre_symmetry_argmax(pcs, batch_size=5)
+    got_idx, got_val = card.get_pre_symmetry_argmax(pcs, batch_size=5)
+    pre = host.get_pre_symmetry_data(pcs, batch_size=5)
+    top2 = np.sort(pre, axis=1)[:, -2:]
+    separated = (top2[:, 1] - top2[:, 0]) > 1e-4 * np.abs(top2[:, 1])
+    assert separated.mean() > 0.5
+    np.testing.assert_array_equal(got_idx[separated], want_idx[separated])
+    np.testing.assert_allclose(got_val, want_val, rtol=1e-5, atol=1e-6)

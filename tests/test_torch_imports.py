@@ -1,15 +1,18 @@
 """The port stands alone, and its copies of numpy-only modules stay equal to
 their originals in the JAX package.
 
-1. In a fresh interpreter where ``jax``, ``flax``, ``optax``, ``orbax`` and
-   the JAX package itself cannot be imported, every module of
+1. In a fresh interpreter where ``jax``, ``flax``, ``optax``, ``orbax``, the
+   JAX package itself and matplotlib, pandas and seaborn (absent on the
+   card's machine) cannot be imported, every module of
    ``geometric_adv_tpu_torch`` imports and the tiny slice runs through the
-   stage CLIs on ``--device cpu``, from ``train_ae --loss emd`` on — as on a
+   stage CLIs on ``--device cpu``, from ``make_synthetic_data`` and
+   ``train_ae --loss emd`` through the attack and both defenses — as on a
    machine that has no JAX; so do a frozen-assignment attack and the
-   pruned chamfer of ``ops/chamfer_hier.py``.
+   pruned chamfer of ``ops/chamfer_hier.py``, and a plot call raises
+   ImportError.
 2. The copies (``attack/pipeline.py``, ``train/config.py`` and the data /
-   augmentation / artifact helpers) give the originals' results on the same
-   inputs.
+   augmentation / artifact / statistics helpers) give the originals' results
+   on the same inputs.
 """
 
 import io
@@ -24,7 +27,9 @@ REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
 STANDALONE = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "flax", "optax", "orbax", "geometric_adv_tpu"):
+BLOCKED = ("jax", "flax", "optax", "orbax", "geometric_adv_tpu", "matplotlib",
+           "pandas", "seaborn")
+for name in BLOCKED:
     sys.modules[name] = None  # any import of them now raises ImportError
 sys.path.insert(0, sys.argv[1])
 import geometric_adv_tpu_torch as pkg
@@ -32,17 +37,23 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 for name in ("cli.run_attack", "cli.train_ae", "ops.emd", "ops.cuda.emd",
-             "ops.cuda.build", "ops.chamfer_hier", "train.trainer"):
+             "ops.cuda.build", "ops.chamfer_hier", "train.trainer",
+             "cli.run_defense_critical", "cli.run_defense_surface",
+             "cli.get_knn_dists_per_point", "cli.evaluate_defense",
+             "cli.make_synthetic_data", "ops.grouping", "utils.plots",
+             "utils.profiling"):
     assert "geometric_adv_tpu_torch." + name in names, names
 
 import numpy as np
 from geometric_adv_tpu_torch.cli import (
-    evaluate_attack, get_dists_per_point, prepare_indices_for_attack,
-    run_attack, train_ae, tst_ae)
-from geometric_adv_tpu_torch.data.synthetic import make_shapenet_like_dir
+    evaluate_attack, evaluate_defense, get_dists_per_point,
+    get_knn_dists_per_point, make_synthetic_data, prepare_indices_for_attack,
+    run_attack, run_defense_critical, run_defense_surface, train_ae, tst_ae)
 
 d, ae = sys.argv[2], "log/ae"
-make_shapenet_like_dir(d + "/data/tiny", ["sphere", "cube", "torus"], 40, 64)
+make_synthetic_data.main(["--project_dir", d, "--data_folder", "data/tiny",
+                          "--class_names", "sphere", "cube", "torus",
+                          "--n_per_class", "40", "--n_points", "64"])
 c = ["--project_dir", d, "--device", "cpu"]
 sel = ae + "/eval/sel_idx_rand_4_test_set_13l.npy"
 train_ae.main(c + ["--data_folder", "data/tiny", "--n_points", "64",
@@ -60,6 +71,20 @@ evaluate_attack.main(["--project_dir", d, "--ae_folder", ae,
                       "--attack_pc_idx", sel])
 m = np.load(d + "/" + ae + "/eval/attack_res/sphere/adversarial_metrics.npy")
 assert m.shape == (1, 8, 5) and np.isfinite(m).all(), m
+a = ["--ae_folder", ae, "--attack_pc_idx", sel]
+run_defense_critical.main(c + a + ["--do_sanity_checks", "1"])
+get_knn_dists_per_point.main(c + a)
+run_defense_surface.main(c + a)
+for defense in ("defense_critical_res", "defense_surface_res"):
+    evaluate_defense.main(["--project_dir", d, "--defense_folder", defense] + a)
+    m = np.load(f"{d}/{ae}/eval/attack_res/{defense}/sphere/defense_metrics.npy")
+    assert m.shape == (1, 8, 4) and np.isfinite(m).all(), m
+from geometric_adv_tpu_torch.utils import plots
+try:
+    plots.plot_attack_triplet(*np.zeros((3, 4, 3)), d + "/p.png")
+    raise AssertionError("a plot call ran without matplotlib")
+except ImportError:
+    pass
 
 import torch
 from geometric_adv_tpu_torch.attack.core import attack_batch
@@ -77,8 +102,7 @@ assert np.isfinite(out.metrics).all(), out.metrics
 for a, b in zip(nn_distance_hier(x, gt), nn_distance(x, gt)):
     assert torch.equal(a, b)
 leaked = sorted(k for k, v in sys.modules.items()
-                if v is not None and k.split(".")[0] in
-                ("jax", "flax", "optax", "orbax", "geometric_adv_tpu"))
+                if v is not None and k.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print("STANDALONE OK", len(names), "modules")
 """
@@ -260,9 +284,30 @@ def test_utils_copies_match_originals(tmp_path):
     args = (["sphere", "cube"],
             *([rng.rand(4, 2).astype(np.float32) for _ in range(2)]
               for _ in range(5)))
-    outs = []
-    for mod in (c_stats, o_stats):
-        buf = io.StringIO()
-        mod.write_attack_statistics_to_file(buf, *args)
-        outs.append(buf.getvalue())
-    assert outs[0] == outs[1]
+    for writer, n_lists in (("write_attack_statistics_to_file", 5),
+                            ("write_defense_statistics_to_file", 4)):
+        outs = []
+        for mod in (c_stats, o_stats):
+            buf = io.StringIO()
+            getattr(mod, writer)(buf, *args[:n_lists + 1])
+            outs.append(buf.getvalue())
+        assert outs[0] == outs[1], writer
+
+
+@pytest.mark.parametrize("module,name", [
+    ("defense.critical", "get_critical_points"),
+    ("defense.critical", "_complementary_idx"),
+    ("defense.critical", "get_critical_pc_non_critical_pc"),
+    ("defense.surface", "get_outlier_pc_inlier_pc"),
+    ("utils.stats", "write_attack_statistics_to_file"),
+    ("utils.stats", "write_defense_statistics_to_file"),
+])
+def test_numpy_copies_keep_their_originals_source(module, name):
+    """The host-numpy copies are their originals' code, line for line, so
+    that a change to one shows up here until the other follows."""
+    import importlib
+    import inspect
+
+    orig = getattr(importlib.import_module(f"geometric_adv_tpu.{module}"), name)
+    copy = getattr(importlib.import_module(f"geometric_adv_tpu_torch.{module}"), name)
+    assert inspect.getsource(copy) == inspect.getsource(orig)

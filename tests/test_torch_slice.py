@@ -5,10 +5,14 @@ and one JAX-initialised victim (bneck 16, as tests/test_cli_pipeline.py:
 58-64) bridged into a port checkpoint. The JAX stage CLIs and the port's
 (``--device cpu``) then run
 tst_ae -> prepare_indices_for_attack -> run_attack (5 iterations) ->
-get_dists_per_point -> evaluate_attack in-process on the same data, the
-port's attack with JAX's ``init_pert`` draw injected. Bars: latents and AE
-loss 1e-5; chamfer matrix 1e-7; index artifacts exact; attack metrics rtol
-2e-4 / atol 1e-6 and clouds 1e-5 (tests/test_attack.py:116-118).
+get_dists_per_point -> evaluate_attack -> run_defense_critical (with its
+replay checks) -> evaluate_defense (adversarial and clean) ->
+get_knn_dists_per_point -> run_defense_surface -> evaluate_defense
+in-process on the same data, the port's attack with JAX's ``init_pert``
+draw injected. Bars: latents and AE loss 1e-5; chamfer matrix 1e-7; index
+artifacts exact; attack and defense metrics rtol 2e-4 / atol 1e-6 and
+clouds 1e-5 (tests/test_attack.py:116-118); critical indices exact; kNN
+distances rtol 1e-6; eval_stats.txt text-equal.
 
 EMD leg (quick tier): a tiny EMD victim trained by the JAX package for one
 epoch, bridged with its weights, then the same stages at the same bars, the
@@ -21,9 +25,9 @@ first Adam step on the victim of tests/test_torch_attack.py); the port's
 float64 sums give the analytic gradient there
 (tests/test_torch_ops_emd.py::test_emd_gradient_at_a_tiny_displacement).
 
-Slow tier: tests/test_cli_pipeline.py:50-102 and its EMD leg (:311-369)
-replayed with the port's stages from the JAX-trained tiny victims, against
-tests/golden/.
+Slow tier: tests/test_cli_pipeline.py:50-120 (the attack and both
+defenses) and its EMD leg (:311-369) replayed with the port's stages from the
+JAX-trained tiny victims, against tests/golden/.
 """
 
 import os
@@ -102,6 +106,35 @@ def run_jax_stages(monkeypatch, d, ae, attack=ATTACK):
         mod.main()
 
 
+def defense_stages(ae, sel=SEL):
+    """(stage, flags, runs on a device) of the defense CLIs, in order."""
+    a = ["--ae_folder", ae, "--attack_pc_idx", f"{ae}/{sel}"]
+    crit = ["--defense_folder", "defense_critical_res"]
+    return [
+        ("run_defense_critical", a + ["--do_sanity_checks", "1"], True),
+        ("evaluate_defense", a + crit, False),
+        ("evaluate_defense", a + crit + ["--use_adversarial_data", "0"], False),
+        ("get_knn_dists_per_point", a, True),
+        ("run_defense_surface", a, True),
+        ("evaluate_defense", a + ["--defense_folder", "defense_surface_res"], False),
+    ]
+
+
+def run_defenses(monkeypatch, d, ae, package, sel=SEL):
+    """The defense stages of ``package`` ("jax" or "port", on the CPU)."""
+    import importlib
+
+    root = "geometric_adv_tpu" if package == "jax" else "geometric_adv_tpu_torch"
+    for stage, flags, on_device in defense_stages(ae, sel):
+        mod = importlib.import_module(f"{root}.cli.{stage}")
+        argv = ["--project_dir", d] + flags
+        if package == "jax":
+            monkeypatch.setattr(sys, "argv", ["stage"] + argv)
+            mod.main()
+        else:
+            mod.main(argv + (["--device", "cpu"] if on_device else []))
+
+
 def bridge_checkpoint(params, batch_stats, train_dir, epoch):
     port_ckpt.save_checkpoint(
         train_dir, epoch,
@@ -130,7 +163,9 @@ def slice_dirs(tmp_path_factory):
                       osp.join(d, port_ae), 1)
     with pytest.MonkeyPatch.context() as mp:
         run_jax_stages(mp, d, jax_ae)
+        run_defenses(mp, d, jax_ae, "jax")
         run_port_stages(mp, d, port_ae)
+        run_defenses(mp, d, port_ae, "port")
     return (osp.join(d, jax_ae, "eval"), osp.join(d, port_ae, "eval"))
 
 
@@ -181,6 +216,149 @@ def test_slice_eval_stats_match_jax(slice_dirs):
     texts = [open(osp.join(e, "attack_res/over_classes/eval_stats.txt")).read()
              for e in slice_dirs]
     assert texts[1] == texts[0]
+
+
+def assert_defense_matches(dirs, defense, cls, outliers):
+    """One class's defense artifacts, both runs: index artifacts exact,
+    metrics at the attack's bar, clouds at 1e-5, shapes and dtypes equal.
+    ``outliers`` names the surface defense's extra points."""
+    res = f"attack_res/{defense}/{cls}/"
+    orig = f"attack_res/{defense}_orig/{cls}/"
+    for rel in (res + "adversarial_critical_idx.npy",
+                res + "adversarial_critical_num.npy",
+                orig + "original_critical_idx.npy",
+                orig + "original_critical_num.npy"):
+        want, got = load_pair(dirs, rel)
+        assert got.dtype == want.dtype, rel
+        np.testing.assert_array_equal(got, want, err_msg=rel)
+    for rel in (res + "defense_metrics.npy", orig + "defense_source_metrics.npy"):
+        want, got = load_pair(dirs, rel)
+        assert got.shape == want.shape and got.dtype == want.dtype, rel
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-6, err_msg=rel)
+    for rel in (res + outliers, res + "defended_pc_input.npy",
+                res + "defended_pc_recon.npy",
+                orig + "original_source_critical_points.npy",
+                orig + "defended_source_input.npy",
+                orig + "defended_source_recon.npy"):
+        want, got = load_pair(dirs, rel)
+        assert got.shape == want.shape and got.dtype == want.dtype, rel
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, err_msg=rel)
+
+
+@pytest.mark.parametrize("cls", CLASSES)
+def test_slice_critical_defense_matches_jax(slice_dirs, cls):
+    assert_defense_matches(slice_dirs, "defense_critical_res", cls,
+                           "adversarial_critical_points.npy")
+    want, got = load_pair(
+        slice_dirs, f"attack_res/defense_critical_res/{cls}/defense_metrics.npy")
+    assert got.shape == (1, 8, 4)
+
+
+@pytest.mark.parametrize("cls", CLASSES)
+def test_slice_surface_defense_matches_jax(slice_dirs, cls):
+    for rel in (f"attack_res/defense_surface_res/{cls}/"
+                "knn_dists_adversarial_pc_input.npy",
+                f"attack_res/defense_surface_res_orig/{cls}/knn_dists_source_pc.npy"):
+        want, got = load_pair(slice_dirs, rel)
+        assert got.shape == want.shape and got.dtype == want.dtype, rel
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=0, err_msg=rel)
+    assert_defense_matches(slice_dirs, "defense_surface_res", cls,
+                           "adversarial_critical_points.npy")
+
+
+@pytest.mark.parametrize("defense", ["defense_critical_res",
+                                     "defense_critical_res_orig",
+                                     "defense_surface_res"])
+def test_slice_defense_eval_stats_match_jax(slice_dirs, defense):
+    texts = [open(osp.join(e, f"attack_res/{defense}/over_classes/eval_stats.txt")).read()
+             for e in slice_dirs]
+    assert "Def" in texts[0] and texts[1] == texts[0]
+
+
+def test_slice_defense_replay_check_catches_drift(slice_dirs, tmp_path):
+    """run_defense_critical --do_sanity_checks 1 raises where the restored
+    victim does not replay tst_ae's reconstructions within 1e-6."""
+    import shutil
+
+    from geometric_adv_tpu_torch.cli import run_defense_critical
+
+    shutil.copytree(osp.dirname(slice_dirs[1]), tmp_path / "log/port_ae")
+    rec = tmp_path / "log/port_ae/eval/reconstructions_test_set_13l.npy"
+    np.save(rec, np.load(rec) + 2e-6)
+    with pytest.raises(RuntimeError, match="source recon replay drift"):
+        run_defense_critical.main([
+            "--project_dir", str(tmp_path), "--device", "cpu", "--ae_folder",
+            "log/port_ae", "--attack_pc_idx", f"log/port_ae/{SEL}",
+            "--do_sanity_checks", "1"])
+
+
+def png_files(root):
+    return sorted(osp.relpath(osp.join(dp, f), root)
+                  for dp, _, fs in os.walk(root) for f in fs if f.endswith(".png"))
+
+
+@pytest.mark.parametrize("flag", ["--save_pc_plots", "--save_graphs"])
+def test_slice_evaluate_attack_plots_match_jax(slice_dirs, flag, monkeypatch):
+    """evaluate_attack's plots: the port writes the JAX stage's files, under
+    the same names, and its other artifacts stay those of a run without
+    plots."""
+    from geometric_adv_tpu.cli import evaluate_attack as jax_eval
+    from geometric_adv_tpu_torch.cli import evaluate_attack as port_eval
+
+    for ev, ae, run in zip(slice_dirs, ("log/jax_ae", "log/port_ae"),
+                           ("jax", "port")):
+        d = osp.dirname(osp.dirname(osp.dirname(ev)))
+        argv = ["--project_dir", d, "--ae_folder", ae, "--attack_pc_idx",
+                f"{ae}/{SEL}", flag, "1"]
+        if run == "jax":
+            monkeypatch.setattr(sys, "argv", ["stage"] + argv)
+            jax_eval.main()
+        else:
+            port_eval.main(argv)
+    want, got = (png_files(osp.join(ev, "attack_res")) for ev in slice_dirs)
+    assert got and got == want
+    test_slice_eval_stats_match_jax(slice_dirs)
+
+
+def test_slice_run_attack_trace_dir_writes_a_trace(slice_dirs):
+    """--trace_dir: a torch.profiler Chrome trace of the first class's
+    attack, with the attack's operators in it."""
+    import json
+
+    from geometric_adv_tpu_torch.cli import run_attack
+
+    ev = slice_dirs[1]
+    d = osp.dirname(osp.dirname(osp.dirname(ev)))
+    trace_dir = osp.join(d, "trace")
+    run_attack.main(["--project_dir", d, "--device", "cpu", "--ae_folder",
+                     "log/port_ae", "--attack_pc_idx", f"log/port_ae/{SEL}",
+                     "--num_pc_for_attack", "1", "--num_pc_for_target", "1",
+                     "--num_iterations", "2", "--num_iterations_thresh", "1",
+                     "--output_folder_name", "attack_res_trace",
+                     "--trace_dir", trace_dir])
+    events = json.load(open(osp.join(trace_dir, "trace.json")))["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert "aten::mm" in names or "aten::addmm" in names, sorted(names)[:50]
+    assert osp.exists(osp.join(ev, "attack_res_trace/sphere/adversarial_metrics.npy"))
+
+
+def test_make_synthetic_data_cli_matches_jax(tmp_path, monkeypatch):
+    """The port's make_synthetic_data writes the JAX stage's PLY tree, byte
+    for byte."""
+    from geometric_adv_tpu.cli import make_synthetic_data as jax_cli
+    from geometric_adv_tpu_torch.cli import make_synthetic_data as port_cli
+
+    flags = ["--class_names", "sphere", "torus", "--n_per_class", "5",
+             "--n_points", "40", "--seed", "3"]
+    monkeypatch.setattr(sys, "argv", ["stage", "--project_dir", str(tmp_path),
+                                      "--data_folder", "jax", *flags])
+    jax_cli.main()
+    port_cli.main(["--project_dir", str(tmp_path), "--data_folder", "port", *flags])
+    trees = []
+    for root in (tmp_path / "jax", tmp_path / "port"):
+        trees.append({osp.relpath(osp.join(dp, f), root): open(osp.join(dp, f), "rb").read()
+                      for dp, _, fs in os.walk(root) for f in fs})
+    assert len(trees[0]) == 10 and trees[1] == trees[0]
 
 
 EMD_ATTACK = ATTACK + ["--loss_dist_type", "pert"]
@@ -269,8 +447,9 @@ def test_port_train_ae_cli_lowers_the_loss(tmp_path, loss):
 
 @pytest.mark.slow
 def test_port_replays_cli_pipeline_goldens(tmp_path, monkeypatch):
-    """tests/test_cli_pipeline.py:50-102 with the port's stages after the
-    JAX-trained victim, against tests/golden/ at the bars above."""
+    """tests/test_cli_pipeline.py:50-120 with the port's stages after the
+    JAX-trained victim, the defenses included, against tests/golden/ at the
+    bars above."""
     from geometric_adv_tpu.train import checkpoint as jax_ckpt
 
     d = str(tmp_path)
@@ -297,6 +476,7 @@ def test_port_replays_cli_pipeline_goldens(tmp_path, monkeypatch):
     tree = jax_ckpt.restore_checkpoint(train_dir, epoch)
     bridge_checkpoint(tree["params"], tree["batch_stats"], train_dir, epoch)
     run_port_stages(monkeypatch, d, ae)
+    run_defenses(monkeypatch, d, ae, "port")
 
     ev = osp.join(train_dir, "eval")
     att = osp.join(ev, "attack_res", "sphere")
@@ -326,6 +506,11 @@ def test_port_replays_cli_pipeline_goldens(tmp_path, monkeypatch):
         np.load(osp.join(att, "analysis_results",
                          "source_target_norm_min_idx.npy")),
         golden("source_target_norm_min_idx_sphere.npy"))
+    for defense in ("critical", "surface"):
+        np.testing.assert_allclose(
+            np.load(osp.join(att, "..", f"defense_{defense}_res", "sphere",
+                             "defense_metrics.npy")),
+            golden(f"defense_{defense}_metrics_sphere.npy"), rtol=2e-4, atol=1e-6)
 
 
 @pytest.mark.slow
