@@ -55,8 +55,15 @@ the script exits non-zero:
      skip threshold, their square root from the gradient's rsqrt is
      sqrtf's), the share of (warp, element) pairs K7 skips at each level
      and K6's clusters resident at once printed;
-4. ten legs through the port's entry points on ``--device cuda``, each with
-   the launch counts zeroed just before and read just after:
+   - the shapes of the evaluation legs: K2 at [1, 30000^2] (metro's: a
+     block's rows outgrow its shared memory, the x2 loop runs 15 chunks)
+     and [2, 5000 x 7000], bit-equal to its plain version in row chunks on
+     the card; K1 and K3 at [16, 2500 x 2048] and [16, 2025 x 2048] (the
+     AtlasNet and FoldingNet losses) on tie clouds, K1 bit-equal to its
+     plain version, K3 to the host's ascending-j sums; second runs
+     bit-equal; each timed beside its bound and plain version;
+4. thirteen legs through the port's entry points on ``--device cuda``, each
+   with the launch counts zeroed just before and read just after:
    - chamfer: ``train_ae --loss chamfer`` (2048 points, 2 epochs), tst_ae,
      prepare_indices_for_attack (all three index kinds), run_attack
      (500/400 iterations, routed by the runner's calibration),
@@ -66,6 +73,21 @@ the script exits non-zero:
      results, get_knn_dists_per_point, run_defense_surface,
      evaluate_defense; the victim's loss kernel (K1) must launch, no EMD
      kernel may;
+   - classifier, on that victim's data, attack and critical defense:
+     train_classifier (2 epochs of batch 32), tst_classifier, run_classifier
+     for the five data types and evaluate_classifier both ways; no chamfer
+     or EMD kernel may launch;
+   - correct-pred attack: run_attack ``--correct_pred_only 1 --chamfer_impl
+     composed`` (20/10 iterations) on the labels train_classifier wrote; K1
+     and K3 must launch;
+   - transfer: train_transfer, tst_transfer, run_transfer, evaluate_transfer
+     for AtlasNet (2500 points) and FoldingNet (2025 points), 2 epochs of
+     batch 16, on that attack, then run_transfer with the victim as its own
+     transfer AE and the 1e-6 identity replay; K1 and K3 must launch in
+     both trainings, K5 and the EMD kernels never;
+   - metro: train_transfer AtlasNet with the SQUARE template (2500 points),
+     then run_metro over the four classes, 2 instances each, at 30000
+     samples a side; K2 exactly once a mesh pair, nothing else;
    - binary search: ``binary_search_attack`` on 8 pairs, 3 steps of 50
      iterations; the attack's chamfer kernels (K1 and K3) must launch;
    - traced attack: run_attack ``--trace_dir`` (20/10 iterations,
@@ -102,13 +124,24 @@ the script exits non-zero:
    the (cloud, class) pairs and at k = C equals it on one class; the
    binary search's weights stay within their bounds and its best distances
    at or below its first step's; the trace names K1's and K3's kernels;
+   the classifier's test-set labels recomputed on the host equal the
+   card's except at near-ties (each printed with its margin), its label and
+   eval_stats artifacts complete; each transfer AE's artifacts of the JAX
+   stages' shapes, finite, and the first class's T-RE recomputed on the
+   host within rtol 2e-4; every metro distance, rebuilt from the same
+   instances and seeded samples, equal through K2 and on the host's chunked
+   plain route to run_metro's;
 6. rates: train samples/s per leg, attack pair-iterations/s of every attack
    leg and, for the exact, frozen-10 and fused chamfer attacks, at the
    reference's batch of 250 pairs and for the EMD attacks (2048 and 1024
    points) at their 24 pairs per call (each with a torch.profiler breakdown
    and the port's kernels' share by source), the chamfer matrix's
    pair-evaluations/s, exact and screened, each defense stage's wall clock,
-   ``knn_point`` at [100, 2048^2], and the peak device memory of each leg.
+   ``knn_point`` at [100, 2048^2], the classifier's train samples/s and
+   inference clouds/s at batch 250, AtlasNet's and FoldingNet's train
+   samples/s, ``knn_point``'s share of a FoldingNet step (with its
+   profile), metro's seconds a mesh pair, and the peak device memory of
+   each leg.
 
 Its last lines are a JSON record of the kernels (each with its shape, its
 time and how it was taken (``ms_by``), the plain version's, its bound and
@@ -153,6 +186,19 @@ SCREEN_C, SCREEN_K, SCREEN_TOP1 = 64, 8, 0.95
 # card's point is within this share of the host's maximum on the host: the
 # two GEMMs' roundings over 256-long dot products (~sqrt(256) * 2^-24)
 NEAR_TIE = 1e-6
+# the shapes the transfer and metro legs give the kernels: AtlasNet's and
+# FoldingNet's losses (K1, K3), metro's Hausdorff at the default 30000 samples
+# a side and a ragged pair (K2); the plain K2 runs in row chunks of PLAIN_CHUNK
+TRANSFER_POINTS = {"atlasnet": 2500, "foldingnet": 2025}  # the decoders' outputs
+TRANSFER_SHAPES = tuple((16, n, N_POINTS) for n in TRANSFER_POINTS.values())
+METRO_SHAPES = ((1, 30000, 30000), (2, 5000, 7000))
+PLAIN_CHUNK = 2048
+METRO_FOLDER, METRO_PER_CLASS, METRO_SAMPLES = "log/atlasnet_square", 2, 30000
+CLS_DATA_TYPES = ("target", "adversarial", "source", "before_defense", "after_defense")
+# a test cloud's label may differ between the card and the host where the
+# host's margin between its top logit and the card's label's is within this
+# share of the cloud's largest |logit| (the two BLAS round differently)
+CLS_NEAR_TIE = 1e-4
 # what a record's "ms" is: a call's time by CUDA events around back-to-back
 # calls, or, for K3 (shorter than its wrapper's host time), the kernel's own
 # time on the device
@@ -1359,6 +1405,374 @@ def check_trace(trace_dir, kernels):
         fail(f"the trace of run_attack --trace_dir misses a kernel: {named}")
 
 
+def transfer_kernel_phase(cu, ch, metro, records):
+    """The shapes the classifier, transfer and metro legs give the ported
+    kernels. K2 at METRO_SHAPES on tie clouds (at 30000 points each block's
+    rows no longer fit its shared memory and the x2 loop runs 15 chunks):
+    bit-equal to its plain version in row chunks on the card (a minimum is
+    exact in any order), a second run bit-equal, timed (CUDA events) beside
+    its bound and the chunked plain version. K1 and K3 at TRANSFER_SHAPES
+    on tie clouds: K1 bit-equal to its plain version with first-index
+    argmins (past 2048 rows the straddling ties too), K3 bit-equal to the
+    host's ascending-j sums and within GRAD_TOL of the card's plain version,
+    second runs bit-equal; K1 timed by CUDA events, K3 by its device time.
+    Each time goes into its record's ``shapes_ms``, with its bound and the
+    plain version's time beside it."""
+    def note(name, shape, ms, plain_ms, bound_ms):
+        rec = records[name]
+        rec.setdefault("shapes_ms", {})[shape] = ms
+        rec.setdefault("shapes_plain_ms", {})[shape] = plain_ms
+        rec.setdefault("shapes_bound_ms", {})[shape] = bound_ms
+        print(f"  {name} at {shape}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({100 * bound_ms / ms:.1f}%), plain {plain_ms:.4f} ms")
+
+    for b, n, m in METRO_SHAPES:
+        x1, x2 = tie_clouds(b, n, m, seed=n + m)
+        shape = f"[{b},{n},3]x[{b},{m},3]"
+        got = cu.nn_distance_values_cuda(x1, x2)
+        again = cu.nn_distance_values_cuda(x1, x2)
+        want = metro.nn_distance_values_chunked(x1, x2, PLAIN_CHUNK)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            fail(f"K2 differs from its chunked plain version at {shape}")
+        if not all(torch.equal(g, a) for g, a in zip(got, again)):
+            fail(f"K2's second run differs from its first at {shape}")
+        print(f"kernel check K2 {shape}: bit-equal to its plain version in row chunks "
+              f"of {PLAIN_CHUNK} on the card, second run bit-equal")
+        note("nn_distance_values_cuda", shape,
+             sync_timed(lambda: cu.nn_distance_values_cuda(x1, x2), 5),
+             sync_timed(lambda: metro.nn_distance_values_chunked(x1, x2, PLAIN_CHUNK), 1),
+             kernel_bound("nn_distance_values_cuda", b, n, m)[0])
+        del x1, x2, got, again, want
+        torch.cuda.empty_cache()
+
+    for b, n, m in TRANSFER_SHAPES:
+        x1, x2 = tie_clouds(b, n, m, seed=n)
+        shape = f"[{b},{n},3]x[{b},{m},3]"
+        k1 = cu.nn_distance_cuda(x1, x2)
+        k1_again = cu.nn_distance_cuda(x1, x2)
+        want = ch.nn_distance_plain(x1, x2)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(k1, want)):
+            fail(f"K1 differs from its plain version at {shape}")
+        if not all(torch.equal(g, a) for g, a in zip(k1, k1_again)):
+            fail(f"K1's second run differs from its first at {shape}")
+        if n >= N_POINTS:
+            check_straddling_ties(k1, shape)
+        rng = np.random.RandomState(n)
+        g1, g2 = (torch.from_numpy(rng.rand(b, k).astype(np.float32)).cuda() for k in (n, m))
+        args = (x1, x2, k1[1], k1[3], g1, g2)
+        k3 = cu.chamfer_grad1_cuda(*args)
+        k3_again = cu.chamfer_grad1_cuda(*args)
+        plain = ch.chamfer_grad1_plain(*args)
+        host = ch.chamfer_grad1_plain(*(t.cpu() for t in args))
+        torch.cuda.synchronize()
+        err = (k3 - plain).abs().max().item()
+        if not (torch.equal(k3.cpu(), host) and torch.equal(k3, k3_again)):
+            fail(f"K3 differs from the host's ascending-j sums or its first run at {shape}")
+        if not err <= GRAD_TOL:
+            fail(f"K3 differs from the card's plain version by {err} at {shape}")
+        print(f"kernel check {shape}: K1 bit-equal to its plain version, first-index "
+              f"argmins; K3 bit-equal to the host's ascending-j sums, {err:.3g} from the "
+              f"card's plain version (tol {GRAD_TOL}); second runs bit-equal")
+        note("nn_distance_cuda", shape, sync_timed(lambda: cu.nn_distance_cuda(x1, x2), 20),
+             sync_timed(lambda: ch.nn_distance_plain(x1, x2), 3),
+             kernel_bound("nn_distance_cuda", b, n, m)[0])
+        note("chamfer_grad1_cuda", shape, device_timed(lambda: cu.chamfer_grad1_cuda(*args), 50),
+             sync_timed(lambda: ch.chamfer_grad1_plain(*args), 5),
+             kernel_bound("chamfer_grad1_cuda", b, n, m)[0])
+        del x1, x2, k1, k1_again, want, args, k3, k3_again, plain, host
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
+def classifier_stages(project, ae):
+    """The classifier CLIs on the card, in order: train (2 epochs of batch
+    32 on the 2048-point train split), test, and each data_type classified
+    and evaluated both ways on the chamfer victim's attack and its critical
+    defense."""
+    from geometric_adv_tpu_torch.cli import (
+        evaluate_classifier,
+        run_classifier,
+        train_classifier,
+        tst_classifier,
+    )
+
+    c = ["--project_dir", project, "--ae_folder", ae, "--device", "cuda"]
+    a = c + ["--attack_pc_idx", f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy"]
+    stages = [
+        ("train_classifier", train_classifier.main,
+         c + ["--data_folder", "data/synthetic", "--max_epoch", "2", "--batch_size", "32"]),
+        ("tst_classifier", tst_classifier.main, c),
+    ]
+    stages += [(f"run_classifier {dt}", run_classifier.main, a + ["--data_type", dt])
+               for dt in CLS_DATA_TYPES]
+    stages += [(f"evaluate_classifier {dt} {ct}", evaluate_classifier.main,
+                a + ["--data_type", dt, "--classification_type", ct])
+               for dt in CLS_DATA_TYPES for ct in ("hit_target", "avoid_source")]
+    return stages
+
+
+def check_classifier(project, ae, stages, n_test):
+    """The classifier's artifacts (labels int8 of the JAX stages' shapes,
+    the ten eval_stats files), its train samples/s and inference clouds/s at
+    batch 250, and its test-set labels recomputed on the host from the
+    saved checkpoint: equal to the card's except where the host's margin
+    between its top logit and the card's label's is within CLS_NEAR_TIE of
+    the cloud's largest |logit| (cuBLAS and the host's BLAS round the
+    1024-wide products differently), each flip printed. Returns (train
+    samples/s, clouds/s, flips)."""
+    from geometric_adv_tpu_torch.classify import ClassifierTrainer
+
+    ev = osp.join(project, ae, "eval")
+    card = np.load(osp.join(ev, "pc_pred_labels_test_set_13l.npy"))
+    if card.shape != (n_test,) or card.dtype != np.int8:
+        fail(f"pc_pred_labels_test_set: {card.shape} {card.dtype}")
+    res = osp.join(ev, "attack_res")
+    pairs = 4 * (len(CLASSES) - 1) * 2
+    files = {"target": "classifier_res_orig/{c}/target_pc_recon_pred.npy",
+             "adversarial": "classifier_res/{c}/adversarial_pc_recon_pred.npy",
+             "source": "defense_critical_res/classifier_res_orig/{c}/source_pc_recon_pred.npy",
+             "after_defense":
+                 "defense_critical_res/classifier_res/{c}/defended_pc_recon_pred.npy"}
+    for dt, rel in files.items():
+        for c in CLASSES:
+            pred = np.load(osp.join(res, rel.format(c=c)))
+            if pred.shape != (1, pairs) or pred.dtype != np.int8:
+                fail(f"{rel.format(c=c)}: {pred.shape} {pred.dtype}")
+    for dt in CLS_DATA_TYPES:
+        folder = {"target": "classifier_res_orig", "adversarial": "classifier_res",
+                  "source": "defense_critical_res/classifier_res_orig"}.get(
+                      dt, "defense_critical_res/classifier_res")
+        for ct in ("hit_target", "avoid_source"):
+            text = open(osp.join(res, folder, "over_classes",
+                                 f"eval_stats_{dt}_{ct}.txt")).read()
+            if "over classes" not in text:
+                fail(f"eval_stats_{dt}_{ct}.txt is incomplete")
+
+    stats = stages["train_classifier"][1]
+    per_epoch = (4 * 51 // 32) * 32
+    rate = (len(stats) - 1) * per_epoch / sum(s[3] for s in stats[1:])
+    print(f"classifier training: loss by epoch {[round(s[1], 4) for s in stats]}, "
+          f"accuracy {[round(s[2], 4) for s in stats]}; {rate:.1f} samples/s over epochs "
+          f"2-{len(stats)} ({per_epoch} per epoch); first epoch {stats[0][3]:.3f} s")
+    if not np.isfinite([s[1] for s in stats]).all():
+        fail("the classifier's training loss is not finite")
+
+    from geometric_adv_tpu_torch.utils.artifacts import load_data
+
+    pcs = load_data(ev, None, ["point_clouds_test_set"])
+    trainer = ClassifierTrainer(num_classes=len(CLASSES), device="cuda").restore(osp.join(project, "log/pointnet"))
+    batch = np.tile(pcs, (-(-250 // len(pcs)), 1, 1))[:250]
+    trainer.classify(batch)  # warm-up
+    t0 = time.time()
+    for _ in range(3):
+        trainer.classify(batch)
+    clouds_s = 3 * 250 / (time.time() - t0)
+    print(f"classifier inference at batch 250: {clouds_s:.1f} clouds/s")
+
+    host = ClassifierTrainer(num_classes=len(CLASSES), device="cpu").restore(osp.join(project, "log/pointnet"))
+    logits = host._logits(torch.from_numpy(pcs)).numpy()
+    flips = []
+    for p in np.flatnonzero(logits.argmax(-1) != card):
+        top = logits[p].max()
+        margin = float(top - logits[p, card[p]])
+        flips.append(margin / np.abs(logits[p]).max())
+        print(f"  label flip, test cloud {p}: host {logits[p].argmax()}, card {card[p]}, "
+              f"host margin {margin:.3g} of max |logit| {np.abs(logits[p]).max():.6g}")
+        if not flips[-1] <= CLS_NEAR_TIE:
+            fail(f"the card's label of test cloud {p} is not a near-tie on the host")
+    print(f"classifier labels on the host: {len(pcs) - len(flips)} of {len(pcs)} equal to "
+          f"the card's, {len(flips)} near-ties (bar {CLS_NEAR_TIE}); card test accuracy "
+          f"{stages['tst_classifier'][1][0]:.4f}")
+    return rate, clouds_s, flips
+
+
+def transfer_stages(project, ae):
+    """The transfer CLIs on the card: AtlasNet (2500 points, one SPHERE
+    primitive, bottleneck 1024) and FoldingNet (2025 points) trained 2
+    epochs of batch 16, tested, run on the chamfer victim's attack and
+    evaluated; then the victim as its own transfer AE with the identity
+    replay checks."""
+    from geometric_adv_tpu_torch.cli import (
+        evaluate_transfer,
+        run_transfer,
+        train_transfer,
+        tst_transfer,
+    )
+
+    c = ["--project_dir", project, "--ae_folder", ae, "--device", "cuda"]
+    a = c + ["--attack_pc_idx", f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy"]
+    stages = []
+    for kind, name, extra in (
+            ("atlasnet", "AtlasNet", ["--number_points", str(TRANSFER_POINTS["atlasnet"])]),
+            ("foldingnet", "FoldingNet", [])):
+        folder = f"log/{kind}_for_transfer"
+        stages += [
+            (f"train_transfer {kind}", train_transfer.main,
+             c + ["--ae_type", kind, "--data_folder", "data/synthetic", "--epochs", "2",
+                  "--batch_size", "16"] + extra),
+            (f"tst_transfer {kind}", tst_transfer.main,
+             c + ["--ae_type", kind, "--train_folder", folder]),
+            (f"run_transfer {name}", run_transfer.main,
+             a + ["--transfer_ae_type", name, "--transfer_ae_folder", folder]),
+            (f"evaluate_transfer {name}", evaluate_transfer.main,
+             a + ["--transfer_ae_type", name]),
+        ]
+    stages.append(("run_transfer PointNet, identity replay", run_transfer.main,
+                   a + ["--transfer_ae_type", "PointNet", "--transfer_ae_folder", ae,
+                        "--do_sanity_checks", "1"]))
+    return stages
+
+
+def check_transfer(project, ae, stages, n_test):
+    """Per transfer AE: K1 and K3 launched in its training, its artifacts
+    of the JAX stages' shapes, finite, and the first class's T-RE recomputed
+    on the host from the saved checkpoint within rtol 2e-4 of the card's
+    (their BLAS round differently); its train samples/s over the second
+    epoch. Returns {kind: samples/s}."""
+    from geometric_adv_tpu_torch.attack.pipeline import get_quantity_at_index
+    from geometric_adv_tpu_torch.cli.common import AttackContext
+    from geometric_adv_tpu_torch.ops.chamfer import chamfer_loss_per_pc
+    from geometric_adv_tpu_torch.transfer import get_transfer_ae, load_transfer_arch
+
+    res = osp.join(project, ae, "eval", "attack_res")
+    pairs = 4 * (len(CLASSES) - 1) * 2
+    ctx = AttackContext(project, ae, attack_folder="attack_res",
+                        attack_pc_idx=f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy")
+    c = CLASSES[0]
+    _, target = ctx.class_attack_data(c, ctx.point_clouds)
+    adv = get_quantity_at_index(
+        [np.load(osp.join(res, c, "adversarial_pc_input.npy"))],
+        np.load(osp.join(res, c, "analysis_results", "source_target_norm_min_idx.npy")))
+    rates = {}
+    for kind, n_out in TRANSFER_POINTS.items():
+        made = stages[f"train_transfer {kind}"][2]
+        if made["nn_distance_cuda"] <= 0 or made["chamfer_grad1_cuda"] <= 0:
+            fail(f"train_transfer {kind} launched {made}, not K1 and K3")
+        folder = osp.join(project, f"log/{kind}_for_transfer")
+        want = {f"eval/reconstructions_test_set_13l.npy": (n_test, n_out, 3),
+                f"eval/ae_loss_test_set_13l.npy": (n_test,)}
+        for rel, shape in want.items():
+            a = np.load(osp.join(folder, rel))
+            if a.shape != shape or not np.isfinite(a).all():
+                fail(f"{kind} {rel}: {a.shape}, finite {np.isfinite(a).all()}")
+        for cls in CLASSES:
+            m = np.load(osp.join(res, f"transfer_res_{kind}", cls, "transfer_metrics.npy"))
+            r = np.load(osp.join(res, f"transfer_res_{kind}", cls, "transferred_pc_recon.npy"))
+            if m.shape != (1, pairs, 4) or r.shape != (1, pairs, n_out, 3):
+                fail(f"{kind} transfer artifacts of {cls}: {m.shape} {r.shape}")
+            if not (np.isfinite(m).all() and np.isfinite(r).all()):
+                fail(f"{kind} transfer artifacts of {cls} are not finite")
+        if "over classes" not in open(osp.join(res, f"transfer_res_{kind}", "over_classes",
+                                               "eval_stats.txt")).read():
+            fail(f"{kind} eval_stats.txt is incomplete")
+        arch = load_transfer_arch(folder)
+        arch.pop("ae_type")
+        host = get_transfer_ae(kind, device="cpu", **arch).restore(folder)
+        recon = host.get_reconstructions(adv, batch_size=4)
+        with torch.no_grad():
+            tre = np.concatenate([chamfer_loss_per_pc(
+                torch.from_numpy(recon[i:i + 1]), torch.from_numpy(target[i:i + 1])).numpy()
+                for i in range(len(adv))])
+        card = np.load(osp.join(res, f"transfer_res_{kind}", c, "transfer_metrics.npy"))[0, :, 0]
+        rel = float(np.max(np.abs(tre - card) / np.abs(card)))
+        stats = stages[f"train_transfer {kind}"][1]
+        per_epoch = (4 * 51 // 16) * 16
+        rates[kind] = (len(stats) - 1) * per_epoch / sum(s[2] for s in stats[1:])
+        print(f"transfer {kind}: loss by epoch {[round(s[1], 6) for s in stats]}, "
+              f"{rates[kind]:.1f} train samples/s over epoch 2 ({per_epoch} per epoch; "
+              f"first epoch {stats[0][2]:.3f} s); training launched {made}; {c}'s T-RE on "
+              f"the host within {rel:.3g} relative of the card's (rtol 2e-4)")
+        if not rel <= 2e-4:
+            fail(f"{kind}'s T-RE on the host differs from the card's by {rel} relative")
+    return rates
+
+
+def foldingnet_step_profile():
+    """One FoldingNet train step at the trainer's [16, 2048] on surface
+    clouds: its device time, that of ``knn_point`` (k = 17) and of the whole
+    graph preparation at the same shape, and the step's top kernels.
+    Returns knn_point's share of the step's device time."""
+    from geometric_adv_tpu_torch.models.foldingnet import NUM_KNN, graph_features
+    from geometric_adv_tpu_torch.ops.grouping import knn_point
+    from geometric_adv_tpu_torch.transfer import FoldingNetTrainer
+
+    trainer = FoldingNetTrainer(device="cuda")
+    x = surface_clouds(16, N_POINTS, seed=9)[0]
+    step_ms = device_timed(lambda: trainer._train_step(x), 3)
+    knn_ms = device_timed(lambda: knn_point(NUM_KNN + 1, x, x), 3)
+    graph_ms = device_timed(lambda: graph_features(x), 3)
+    share = knn_ms / step_ms
+    print(f"FoldingNet train step at [16, {N_POINTS}]: {step_ms:.3f} ms on the device; "
+          f"knn_point (k = {NUM_KNN + 1}) {knn_ms:.3f} ms ({100 * share:.1f}% of the step), "
+          f"graph_features {graph_ms:.3f} ms")
+    device_breakdown(lambda: trainer._train_step(x), f"one FoldingNet train step at [16, {N_POINTS}]")
+    return share
+
+
+def metro_stages(project, ae):
+    """AtlasNet with the SQUARE template (2500 points, a 50 x 50 grid)
+    trained 2 epochs, then run_metro over CLASSES (all meshable), 2
+    instances each, at METRO_SAMPLES samples a side."""
+    from geometric_adv_tpu_torch.cli import run_metro, train_transfer
+
+    c = ["--project_dir", project, "--ae_folder", ae, "--device", "cuda"]
+    return [
+        ("train_transfer atlasnet SQUARE", train_transfer.main,
+         c + ["--ae_type", "atlasnet", "--data_folder", "data/synthetic", "--epochs", "2",
+              "--batch_size", "16", "--number_points", "2500", "--template_type", "SQUARE",
+              "--train_folder", METRO_FOLDER]),
+        ("run_metro", run_metro.main,
+         c + ["--transfer_ae_folder", METRO_FOLDER, "--class_names", *CLASSES,
+              "--num_per_class", str(METRO_PER_CLASS), "--n_samples", str(METRO_SAMPLES)]),
+    ]
+
+
+def check_metro(project, stages, metro):
+    """run_metro launched K2 exactly once per mesh pair and nothing else;
+    each pair, rebuilt as run_metro builds it (the same instances, mesh and
+    seeded samples on the card), gives the saved distance through K2, and
+    the host's chunked plain route on the same samples gives it too.
+    Returns seconds per mesh pair."""
+    from geometric_adv_tpu_torch.data.synthetic import sample_shape_and_mesh
+    from geometric_adv_tpu_torch.transfer import get_transfer_ae, load_transfer_arch
+
+    seconds, rows, made = stages["run_metro"]
+    n_pairs = len(CLASSES) * METRO_PER_CLASS
+    if made != {"nn_distance_values_cuda": n_pairs, "nn_distance_cuda": 0,
+                "chamfer_grad1_cuda": 0}:
+        fail(f"run_metro launched {made}, not K2 once for each of {n_pairs} mesh pairs")
+    folder = osp.join(project, METRO_FOLDER)
+    saved = np.load(osp.join(folder, "eval", "metro_distances.npy"))
+    arch = load_transfer_arch(folder)
+    arch.pop("ae_type")
+    trainer = get_transfer_ae("atlasnet", device="cuda", **arch).restore(folder)
+    rng = np.random.RandomState(17)  # run_metro's --seed
+    k, host_s = 0, 0.0
+    for name in CLASSES:
+        draws = [sample_shape_and_mesh(name, N_POINTS, rng) for _ in range(METRO_PER_CLASS)]
+        for i, (pc, (gv, gf)) in enumerate(draws):
+            mv, mf = metro.atlasnet_generate_mesh(trainer, pc)
+            gen = torch.Generator(device="cuda").manual_seed(17 + i)
+            s1 = metro.sample_mesh_surface(mv, mf, METRO_SAMPLES, gen, "cuda")
+            s2 = metro.sample_mesh_surface(gv, gf, METRO_SAMPLES, gen, "cuda")
+            card = float(metro.hausdorff_sampled(s1, s2))
+            t0 = time.time()
+            host = float(metro.hausdorff_sampled(s1.cpu(), s2.cpu()))
+            host_s += time.time() - t0
+            print(f"  metro {name} #{i}: {card:.6f} through K2, {host:.6f} on the host, "
+                  f"{float(saved[k]):.6f} saved by run_metro ({len(mv)} vertices, "
+                  f"{len(mf)} faces against {len(gf)})")
+            if not (card == host and np.float32(card) == saved[k]):
+                fail(f"metro pair {k} ({name}): K2 {card}, host {host}, saved {saved[k]}")
+            k += 1
+    print(f"metro: {n_pairs} pairs, K2 once each; every distance equal to the host's "
+          f"chunked plain route on the same samples ({host_s:.1f} s on the host) and to "
+          f"run_metro's; {seconds / n_pairs:.3f} s per mesh pair (stage {seconds:.2f} s)")
+    return seconds / n_pairs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1370,6 +1784,7 @@ def main() -> int:
     from geometric_adv_tpu_torch.ops.cuda import build
     from geometric_adv_tpu_torch.ops.cuda import chamfer as cu
     from geometric_adv_tpu_torch.ops.cuda import emd as cu_emd
+    from geometric_adv_tpu_torch.transfer import metro
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1397,6 +1812,7 @@ def main() -> int:
     phase_counts = cu.launch_counts()
     print(f"kernel phase launches: {phase_counts}")
     records.update(emd_kernel_phase(cu_emd, emd))
+    transfer_kernel_phase(cu, ch, metro, records)
 
     shutil.rmtree(WORK, ignore_errors=True)
     project = WORK
@@ -1452,6 +1868,46 @@ def main() -> int:
     rates["screened chamfer matrix pair-evals/s"] = screened_matrix_check(
         clouds, exact, exact_rate, slice_idx)
     del clouds, exact
+
+    # --- the classifier on the chamfer victim's data, attack and defense ----
+    counts, stages = leg("classifier", counters, lambda: run_stages(
+        classifier_stages(project, ae)), ())
+    launches = {k: launches[k] + counts[k] for k in launches}
+    if any(counts.values()):
+        fail(f"the classifier stages launched a chamfer or EMD kernel: {counts}")
+    (rates["classifier train samples/s"], rates["classifier clouds/s at batch 250"],
+     _) = check_classifier(project, ae, stages, n_test)
+    rates["classifier stage seconds"] = {k: v[0] for k, v in stages.items()}
+    # the attack on the targets the port's classifier labels correctly
+    counts, stages = leg("correct-pred attack", counters, lambda: run_stages([
+        attack_stage(project, ae, (20, 10), "attack_res_correct_pred",
+                     ["--correct_pred_only", "1", "--chamfer_impl", "composed"])]),
+        ("nn_distance_cuda", "chamfer_grad1_cuda"))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    m = np.load(osp.join(project, ae, "eval/attack_res_correct_pred", CLASSES[0],
+                         "adversarial_metrics.npy"))
+    if m.shape != (1, n_pairs // len(CLASSES), 5) or not np.isfinite(m).all():
+        fail(f"the correct-pred attack's metrics: {m.shape}")
+
+    # --- transfer: AtlasNet and FoldingNet on the chamfer victim's attack ---
+    watch = (cu.nn_distance_cuda, cu.chamfer_grad1_cuda, cu.nn_distance_values_cuda)
+    counts, stages = leg("transfer", counters, lambda: run_stages(
+        transfer_stages(project, ae), watch), ("nn_distance_cuda", "chamfer_grad1_cuda"))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    for k in ("chamfer_loss_payloads_cuda", "emd_sweep_block_cuda", "emd_sweep_tiled_cuda"):
+        if counts[k]:
+            fail(f"{k} was launched in the transfer leg")
+    transfer_rates = check_transfer(project, ae, stages, n_test)
+    rates["AtlasNet train samples/s"] = transfer_rates["atlasnet"]
+    rates["FoldingNet train samples/s"] = transfer_rates["foldingnet"]
+    rates["transfer stage seconds"] = {k: v[0] for k, v in stages.items()}
+    rates["knn_point share of a FoldingNet step"] = foldingnet_step_profile()
+
+    # --- metro: AtlasNet's SQUARE meshes against the analytic ones (K2) ----
+    counts, stages = leg("metro", counters, lambda: run_stages(
+        metro_stages(project, ae), watch), ("nn_distance_values_cuda",))
+    launches = {k: launches[k] + counts[k] for k in launches}
+    rates["metro seconds per mesh pair"] = check_metro(project, stages, metro)
 
     # --- binary_search_attack, and a traced run_attack ----------------------
     # with gradients at 2048 points the attack's chamfer routes composed

@@ -3,8 +3,8 @@
 pinned by ``tests/test_torch_imports.py``). Each class is a parametric
 surface sampled at ``n_points`` with per-instance shape jitter, normalised
 into the unit sphere; ``make_shapenet_like_dir`` writes the
-/class_name/model_XXXX.ply tree the loaders read. The analytic meshes of the
-metro leg are not copied.
+/class_name/model_XXXX.ply tree the loaders read; ``sample_shape_and_mesh``
+gives an instance's analytic mesh beside its cloud (the metro leg).
 """
 
 from __future__ import annotations
@@ -122,6 +122,139 @@ def sample_shape(
 ) -> np.ndarray:
     pc, _ = _sample_raw(name, n_points, rng)
     return _unit_normalise(pc).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# analytic ground-truth meshes (for the metro eval leg)
+
+# classes whose sampled point set lies ON a clean parametric surface that
+# admits an exact triangle mesh with the same instance parameters. The
+# noisy/volumetric classes (plane_xy, helix, cross, disk: gaussian
+# thickness; pyramid: solid square cross-sections) are excluded — a surface
+# mesh would NOT be the support of their samples.
+MESHABLE_CLASSES = (
+    "sphere", "ellipsoid", "cube", "cylinder", "tube", "torus", "cone",
+    "saddle",
+)
+
+
+def _param_grid_faces(gu: int, gv: int, wrap_u=False, wrap_v=False):
+    """Triangle faces over a gu x gv vertex grid (row-major i*gv+j),
+    optionally wrapping either axis (closed parametric surfaces)."""
+    faces = []
+    for i in range(gu if wrap_u else gu - 1):
+        i2 = (i + 1) % gu
+        for j in range(gv if wrap_v else gv - 1):
+            j2 = (j + 1) % gv
+            va, vb = i * gv + j, i2 * gv + j
+            vc, vd = i * gv + j2, i2 * gv + j2
+            faces.append([va, vb, vc])
+            faces.append([vb, vd, vc])
+    return np.asarray(faces, np.int32)
+
+
+def _uv_grid(gu, gv, ulo, uhi, vlo, vhi, endpoint_u, endpoint_v):
+    u = np.linspace(ulo, uhi, gu, endpoint=endpoint_u)
+    v = np.linspace(vlo, vhi, gv, endpoint=endpoint_v)
+    return np.meshgrid(u, v, indexing="ij")
+
+
+def shape_mesh_raw(name: str, a: float, b: float, c: float):
+    """Exact triangle mesh of the parametric surface ``_sample_raw``
+    samples, in RAW (pre-normalisation) coordinates, for the instance
+    parameters (a, b, c). Returns (vertices [V, 3] f64, faces [F, 3] i32),
+    or None for non-meshable classes (see MESHABLE_CLASSES)."""
+    tau = 2 * np.pi
+    if name in ("sphere", "ellipsoid"):
+        u, v = _uv_grid(48, 25, 0, tau, 0, np.pi, False, True)
+        sx, sy, sz = (
+            (a, b, c) if name == "sphere" else (1.5 * a, 0.6 * b, 0.9 * c)
+        )
+        verts = np.stack(
+            [sx * np.sin(v) * np.cos(u), sy * np.sin(v) * np.sin(u),
+             sz * np.cos(v)], -1)
+        faces = _param_grid_faces(48, 25, wrap_u=True)
+    elif name == "cube":
+        corners = np.array(
+            [[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)],
+            np.float64,
+        )
+        verts = corners * np.array([a, b, c])
+        # 12 triangles, 2 per face of the ±1 cube (corner index bit order:
+        # x*4 + y*2 + z)
+        faces = np.asarray(
+            [[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],  # x = -1, +1
+             [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],  # y = -1, +1
+             [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]],  # z = -1, +1
+            np.int32,
+        )
+        return verts, faces
+    elif name in ("cylinder", "tube"):
+        ra, rb, h = (
+            (a, b, 1.4 * c) if name == "cylinder" else (0.4 * a, 0.4 * b, 2.0 * c)
+        )
+        u, t = _uv_grid(48, 9, 0, tau, -1, 1, False, True)
+        verts = np.stack([ra * np.cos(u), rb * np.sin(u), h * t], -1)
+        faces = _param_grid_faces(48, 9, wrap_u=True)
+    elif name == "torus":
+        r = 0.25 * c
+        u, w = _uv_grid(48, 24, 0, tau, 0, tau, False, False)
+        verts = np.stack(
+            [(a + r * np.cos(w)) * np.cos(u),
+             (b + r * np.cos(w)) * np.sin(u),
+             r * np.sin(w)], -1)
+        faces = _param_grid_faces(48, 24, wrap_u=True, wrap_v=True)
+    elif name == "cone":
+        u, t = _uv_grid(48, 9, 0, tau, 0, 1, False, True)
+        verts = np.stack(
+            [a * t * np.cos(u), b * t * np.sin(u), 1.5 * c * (1 - t)], -1)
+        faces = _param_grid_faces(48, 9, wrap_u=True)
+    elif name == "saddle":
+        s0, s1 = _uv_grid(17, 17, -1, 1, -1, 1, True, True)
+        verts = np.stack(
+            [a * s0, b * s1, 0.7 * c * (s0 * s0 - s1 * s1)], -1)
+        faces = _param_grid_faces(17, 17)
+    else:
+        return None
+    return verts.reshape(-1, 3), faces
+
+
+def sample_shape_and_mesh(
+    name: str, n_points: int, rng: np.random.RandomState
+):
+    """(point cloud [n, 3] f32, (mesh_verts [V, 3] f32, faces) or None).
+
+    The cloud is IDENTICAL to ``sample_shape`` for the same rng state (mesh
+    construction consumes no rng draws), and the mesh is normalised with
+    the cloud's own center/scale so both live in the same frame — the GT
+    side of the metro eval (cli/run_metro.py)."""
+    pc_raw, abc = _sample_raw(name, n_points, rng)
+    center, scale = _normalise_params(pc_raw)
+    pc = ((pc_raw - center) * scale).astype(np.float32)
+    mesh = shape_mesh_raw(name, *abc)
+    if mesh is None:
+        return pc, None
+    verts, faces = mesh
+    return pc, (((verts - center) * scale).astype(np.float32), faces)
+
+
+def make_dataset(
+    class_names=SHAPE_CLASSES, n_per_class=40, n_points=2048, seed=0
+):
+    """Return (point_clouds [N, n, 3], slice_idx, labels, class_names)."""
+    rng = np.random.RandomState(seed)
+    pcs, slice_idx, labels = [], [0], []
+    for ci, name in enumerate(class_names):
+        for _ in range(n_per_class):
+            pcs.append(sample_shape(name, n_points, rng))
+        slice_idx.append(slice_idx[-1] + n_per_class)
+        labels += [ci] * n_per_class
+    return (
+        np.stack(pcs),
+        np.asarray(slice_idx),
+        np.asarray(labels, dtype=np.int8),
+        list(class_names),
+    )
 
 
 def make_shapenet_like_dir(

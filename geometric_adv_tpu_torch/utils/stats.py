@@ -1,6 +1,7 @@
-"""The attack and defense eval_stats writers — copied from
-``geometric_adv_tpu/utils/stats.py`` (byte format of reference:
-src/adversary_utils.py:181-257), pinned by ``tests/test_torch_imports.py``.
+"""The eval_stats writers of the attack, the defenses, transfer and the
+classifier — copied from ``geometric_adv_tpu/utils/stats.py`` (byte format
+of reference: src/adversary_utils.py:181-329), pinned by
+``tests/test_torch_imports.py``.
 """
 
 from __future__ import annotations
@@ -76,4 +77,59 @@ def write_defense_statistics_to_file(
             np.vstack(adv_source_chamfer_list).mean(),
             np.vstack(adv_source_nre_list).mean(),
         )
+    )
+
+
+def write_transfer_statistics_to_file(
+    fout, classes_for_attack, tra_target_chamfer_list, tra_target_nre_list,
+    adv_target_chamfer_list, adv_target_nre_list,
+):
+    """reference: src/adversary_utils.py:260-295."""
+    fout.write("Shape\t\tTra\t\tTra\t\tAdv\t\tAdv\n")
+    fout.write("Class\t\tT-RE\t\tT-NRE\t\tT-RE\t\tT-NRE\n")
+    fout.write("\n")
+    for c, name in enumerate(classes_for_attack):
+        fout.write(
+            "%s%.5f\t\t%.2f\t\t%.5f\t\t%.2f\n"
+            % (
+                _pad(name),
+                tra_target_chamfer_list[c].mean(),
+                tra_target_nre_list[c].mean(),
+                adv_target_chamfer_list[c].mean(),
+                adv_target_nre_list[c].mean(),
+            )
+        )
+    fout.write("\n")
+    fout.write(
+        "%s%.5f\t\t%.2f\t\t%.5f\t\t%.2f\n"
+        % (
+            _pad("over classes"),
+            np.vstack(tra_target_chamfer_list).mean(),
+            np.vstack(tra_target_nre_list).mean(),
+            np.vstack(adv_target_chamfer_list).mean(),
+            np.vstack(adv_target_nre_list).mean(),
+        )
+    )
+
+
+def write_classification_statistics_to_file(
+    fout, classes_for_attack, recon_cls_list, data_type
+):
+    """reference: src/adversary_utils.py:298-329."""
+    headers = {
+        "target": ("Orig target recon", "Target accuracy"),
+        "adversarial": ("Adv recon", "Target accuracy"),
+        "source": ("Orig source recon", "Source accuracy"),
+        "before_defense": ("Adv recon", "Source accuracy"),
+        "after_defense": ("Def recon", "Source accuracy"),
+    }
+    h1, h2 = headers[data_type]
+    fout.write(f"Shape\t\t{h1}\n")
+    fout.write(f"Shape\t\t{h2}\n")
+    fout.write("\n")
+    for c, name in enumerate(classes_for_attack):
+        fout.write("%s%.4f\n" % (_pad(name), recon_cls_list[c].mean()))
+    fout.write("\n")
+    fout.write(
+        "%s%.4f\n" % (_pad("over classes"), np.vstack(recon_cls_list).mean())
     )

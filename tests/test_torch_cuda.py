@@ -614,3 +614,52 @@ def test_pre_symmetry_argmax_on_card_matches_host(cuda):
     assert separated.mean() > 0.5
     np.testing.assert_array_equal(got_idx[separated], want_idx[separated])
     np.testing.assert_allclose(got_val, want_val, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 30000, 30000), (2, 5000, 7000)])
+def test_k2_at_the_metro_shapes_matches_its_chunked_plain_version(cuda, b, n, m):
+    """K2 at metro's shapes, where a block's rows outgrow its shared memory
+    and the x2 loop runs several chunks: bit-equal to its plain version in
+    row chunks (a minimum is exact in any order), a second run too."""
+    from geometric_adv_tpu_torch.transfer import metro
+
+    a, c = (t.to(cuda) for t in tie_clouds(b, n, m, seed=n + m))
+    got = cu.nn_distance_values_cuda(a, c)
+    for g, w in zip(got, metro.nn_distance_values_chunked(a, c, 2048)):
+        assert torch.equal(g, w)
+    for g, w in zip(cu.nn_distance_values_cuda(a, c), got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [2500, 2025])
+def test_k1_k3_at_the_transfer_shapes(cuda, n):
+    """K1 and K3 at AtlasNet's (2500) and FoldingNet's (2025) loss against
+    2048-point clouds: K1 bit-equal to its plain version, K3 bit-equal to
+    the host's ascending-j sums and within GRAD_TOL of the card's plain
+    version."""
+    a, c = (t.to(cuda) for t in tie_clouds(16, n, 2048, seed=n))
+    got = cu.nn_distance_cuda(a, c)
+    for g, w in zip(got, ch.nn_distance_plain(a, c)):
+        assert torch.equal(g, w)
+    gen = torch.Generator().manual_seed(n)
+    args = (a, c, got[1], got[3], torch.rand(16, n, generator=gen).to(cuda),
+            torch.rand(16, 2048, generator=gen).to(cuda))
+    k3 = cu.chamfer_grad1_cuda(*args)
+    assert torch.equal(k3.cpu(), ch.chamfer_grad1_plain(*(t.cpu() for t in args)))
+    assert (k3 - ch.chamfer_grad1_plain(*args)).abs().max().item() <= GRAD_TOL
+
+
+def test_metro_hausdorff_on_the_card_matches_the_host(cuda):
+    """hausdorff_sampled through K2 on the card equals the host's chunked
+    plain route on the same samples."""
+    from geometric_adv_tpu_torch.transfer import metro
+
+    verts = np.random.RandomState(0).rand(4, 25, 3).astype(np.float32)
+    mesh = metro.merge_patch_meshes(verts, metro.square_grid_faces(5))
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    s1 = metro.sample_mesh_surface(*mesh, 3000, gen, cuda)
+    s2 = metro.sample_mesh_surface(*mesh, 2000, gen, cuda)
+    before = cu.nn_distance_values_cuda.launches
+    card = metro.hausdorff_sampled(s1, s2)
+    assert cu.nn_distance_values_cuda.launches == before + 1
+    assert float(card) == float(metro.hausdorff_sampled(s1.cpu(), s2.cpu()))

@@ -6,10 +6,11 @@ their originals in the JAX package.
    card's machine) cannot be imported, every module of
    ``geometric_adv_tpu_torch`` imports and the tiny slice runs through the
    stage CLIs on ``--device cpu``, from ``make_synthetic_data`` and
-   ``train_ae --loss emd`` through the attack and both defenses — as on a
-   machine that has no JAX; so do a frozen-assignment attack and the
-   pruned chamfer of ``ops/chamfer_hier.py``, and a plot call raises
-   ImportError.
+   ``train_ae --loss emd`` through the attack and both defenses, then
+   ``train_classifier``, ``run_classifier``, ``train_transfer`` (AtlasNet
+   and FoldingNet) and ``run_metro`` — as on a machine that has no JAX; so
+   do a frozen-assignment attack and the pruned chamfer of
+   ``ops/chamfer_hier.py``, and a plot call raises ImportError.
 2. The copies (``attack/pipeline.py``, ``train/config.py`` and the data /
    augmentation / artifact / statistics helpers) give the originals' results
    on the same inputs.
@@ -32,6 +33,8 @@ BLOCKED = ("jax", "flax", "optax", "orbax", "geometric_adv_tpu", "matplotlib",
 for name in BLOCKED:
     sys.modules[name] = None  # any import of them now raises ImportError
 sys.path.insert(0, sys.argv[1])
+import torch
+torch.set_num_threads(2)  # the run shares the host with the other test workers
 import geometric_adv_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -41,7 +44,12 @@ for name in ("cli.run_attack", "cli.train_ae", "ops.emd", "ops.cuda.emd",
              "cli.run_defense_critical", "cli.run_defense_surface",
              "cli.get_knn_dists_per_point", "cli.evaluate_defense",
              "cli.make_synthetic_data", "ops.grouping", "utils.plots",
-             "utils.profiling"):
+             "utils.profiling", "classify.trainer", "models.pointnet_cls",
+             "models.atlasnet", "models.foldingnet", "transfer.trainers",
+             "transfer.metro", "cli.train_classifier", "cli.tst_classifier",
+             "cli.run_classifier", "cli.evaluate_classifier", "cli.train_transfer",
+             "cli.tst_transfer", "cli.run_transfer", "cli.evaluate_transfer",
+             "cli.run_metro"):
     assert "geometric_adv_tpu_torch." + name in names, names
 
 import numpy as np
@@ -79,6 +87,26 @@ for defense in ("defense_critical_res", "defense_surface_res"):
     evaluate_defense.main(["--project_dir", d, "--defense_folder", defense] + a)
     m = np.load(f"{d}/{ae}/eval/attack_res/{defense}/sphere/defense_metrics.npy")
     assert m.shape == (1, 8, 4) and np.isfinite(m).all(), m
+from geometric_adv_tpu_torch.cli import (
+    run_classifier, run_metro, train_classifier, train_transfer)
+# the evaluation models train on a smaller split: 17 clouds a class
+make_synthetic_data.main(["--project_dir", d, "--data_folder", "data/micro",
+                          "--class_names", "sphere", "cube", "torus",
+                          "--n_per_class", "20", "--n_points", "64"])
+train_classifier.main(c + ["--ae_folder", ae, "--data_folder", "data/micro",
+                           "--max_epoch", "1", "--batch_size", "8",
+                           "--train_folder", "log/cls"])
+labels = np.load(d + "/" + ae + "/eval/pc_pred_labels_test_set_13l.npy")
+assert labels.shape == (12,) and labels.dtype == np.int8, labels
+run_classifier.main(c + a + ["--classifier_folder", "log/cls",
+                             "--data_type", "after_defense"])
+for kind, extra in (("atlasnet", ["--number_points", "36", "--template_type", "SQUARE"]),
+                    ("foldingnet", [])):
+    train_transfer.main(c + ["--ae_type", kind, "--ae_folder", ae, "--data_folder",
+                             "data/micro", "--epochs", "1", "--batch_size", "8"] + extra)
+rows = run_metro.main(c + ["--transfer_ae_folder", "log/atlasnet_for_transfer",
+                           "--ae_folder", ae, "--n_samples", "200"])
+assert len(rows) == 6 and all(np.isfinite(r[1]) for r in rows), rows
 from geometric_adv_tpu_torch.utils import plots
 try:
     plots.plot_attack_triplet(*np.zeros((3, 4, 3)), d + "/p.png")
@@ -129,6 +157,33 @@ def test_cli_device_cuda_raises_without_cuda(tmp_path):
         resolve_device("cuda")
     with pytest.raises(NotImplementedError):
         resolve_device("cpu", matmul_precision="bfloat16")
+
+
+NEW_CLIS = {  # the classifier and transfer CLIs, with their required flags
+    "train_classifier": [], "tst_classifier": [],
+    "run_classifier": ["--attack_pc_idx", "x.npy"],
+    "evaluate_classifier": ["--attack_pc_idx", "x.npy"],
+    "train_transfer": [], "tst_transfer": ["--train_folder", "t"],
+    "run_transfer": ["--attack_pc_idx", "x.npy", "--transfer_ae_folder", "t"],
+    "evaluate_transfer": ["--attack_pc_idx", "x.npy"], "run_metro": [],
+}
+
+
+@pytest.mark.parametrize("stage", sorted(NEW_CLIS))
+def test_new_cli_device_cuda_raises_without_cuda(stage, tmp_path):
+    """Each classifier and transfer CLI takes ``--device`` (default cuda) and
+    raises on a host without CUDA before any stage work."""
+    import importlib
+
+    torch = pytest.importorskip("torch")
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    mod = importlib.import_module(f"geometric_adv_tpu_torch.cli.{stage}")
+    argv = ["--project_dir", str(tmp_path)] + NEW_CLIS[stage]
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            mod.main(argv + extra)
+    assert list(tmp_path.iterdir()) == []
 
 
 def _grid_inputs(seed):
@@ -222,6 +277,19 @@ def test_data_copies_match_originals(tmp_path):
         np.testing.assert_array_equal(c_aug.sort_axes(pcs),
                                       o_aug.sort_axes(ods.point_clouds))
 
+    for name in classes:
+        got = c_syn.sample_shape_and_mesh(name, 40, np.random.RandomState(5))
+        want = o_syn.sample_shape_and_mesh(name, 40, np.random.RandomState(5))
+        np.testing.assert_array_equal(got[0], want[0])
+        assert (got[1] is None) == (want[1] is None) == (name not in o_syn.MESHABLE_CLASSES)
+        if want[1] is not None:
+            for g, w in zip(got[1], want[1]):
+                assert g.dtype == w.dtype
+                np.testing.assert_array_equal(g, w)
+    for g, w in zip(c_syn.make_dataset(classes[:4], 5, 32, seed=2),
+                    o_syn.make_dataset(classes[:4], 5, 32, seed=2)):
+        np.testing.assert_array_equal(g, w)
+
     pts = np.random.RandomState(0).randn(10, 3).astype(np.float32)
     for binary in (True, False):
         path = str(tmp_path / f"p{int(binary)}.ply")
@@ -285,13 +353,22 @@ def test_utils_copies_match_originals(tmp_path):
             *([rng.rand(4, 2).astype(np.float32) for _ in range(2)]
               for _ in range(5)))
     for writer, n_lists in (("write_attack_statistics_to_file", 5),
-                            ("write_defense_statistics_to_file", 4)):
+                            ("write_defense_statistics_to_file", 4),
+                            ("write_transfer_statistics_to_file", 4)):
         outs = []
         for mod in (c_stats, o_stats):
             buf = io.StringIO()
             getattr(mod, writer)(buf, *args[:n_lists + 1])
             outs.append(buf.getvalue())
         assert outs[0] == outs[1], writer
+    for data_type in ("target", "adversarial", "source", "before_defense",
+                      "after_defense"):
+        outs = []
+        for mod in (c_stats, o_stats):
+            buf = io.StringIO()
+            mod.write_classification_statistics_to_file(buf, *args[:2], data_type)
+            outs.append(buf.getvalue())
+        assert outs[0] == outs[1], data_type
 
 
 @pytest.mark.parametrize("module,name", [
@@ -301,6 +378,16 @@ def test_utils_copies_match_originals(tmp_path):
     ("defense.surface", "get_outlier_pc_inlier_pc"),
     ("utils.stats", "write_attack_statistics_to_file"),
     ("utils.stats", "write_defense_statistics_to_file"),
+    ("utils.stats", "write_transfer_statistics_to_file"),
+    ("utils.stats", "write_classification_statistics_to_file"),
+    ("data.synthetic", "_param_grid_faces"),
+    ("data.synthetic", "_uv_grid"),
+    ("data.synthetic", "shape_mesh_raw"),
+    ("data.synthetic", "sample_shape_and_mesh"),
+    ("data.synthetic", "make_dataset"),
+    ("models.atlasnet", "sphere_template_points"),
+    ("models.atlasnet", "square_template_points"),
+    ("models.foldingnet", "folding_grid"),
 ])
 def test_numpy_copies_keep_their_originals_source(module, name):
     """The host-numpy copies are their originals' code, line for line, so
@@ -311,3 +398,10 @@ def test_numpy_copies_keep_their_originals_source(module, name):
     orig = getattr(importlib.import_module(f"geometric_adv_tpu.{module}"), name)
     copy = getattr(importlib.import_module(f"geometric_adv_tpu_torch.{module}"), name)
     assert inspect.getsource(copy) == inspect.getsource(orig)
+
+
+def test_meshable_classes_copy_matches_original():
+    from geometric_adv_tpu.data import synthetic as orig
+    from geometric_adv_tpu_torch.data import synthetic as copy
+
+    assert copy.MESHABLE_CLASSES == orig.MESHABLE_CLASSES

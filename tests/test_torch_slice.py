@@ -9,10 +9,15 @@ get_dists_per_point -> evaluate_attack -> run_defense_critical (with its
 replay checks) -> evaluate_defense (adversarial and clean) ->
 get_knn_dists_per_point -> run_defense_surface -> evaluate_defense
 in-process on the same data, the port's attack with JAX's ``init_pert``
-draw injected. Bars: latents and AE loss 1e-5; chamfer matrix 1e-7; index
+draw injected; then, from checkpoints bridged from the JAX package's, the
+classifier stages (run_classifier for the five data types, evaluate_classifier
+both ways) and the transfer stages (tst/run/evaluate_transfer for AtlasNet
+and FoldingNet). Bars: latents and AE loss 1e-5; chamfer matrix 1e-7; index
 artifacts exact; attack and defense metrics rtol 2e-4 / atol 1e-6 and
 clouds 1e-5 (tests/test_attack.py:116-118); critical indices exact; kNN
-distances rtol 1e-6; eval_stats.txt text-equal.
+distances rtol 1e-6; eval_stats.txt text-equal; predicted labels equal;
+transfer metrics rtol 2e-4 / atol 1e-6, transferred clouds 1e-5, transfer
+AE test loss rtol 1e-5.
 
 EMD leg (quick tier): a tiny EMD victim trained by the JAX package for one
 epoch, bridged with its weights, then the same stages at the same bars, the
@@ -27,7 +32,8 @@ float64 sums give the analytic gradient there
 
 Slow tier: tests/test_cli_pipeline.py:50-120 (the attack and both
 defenses) and its EMD leg (:311-369) replayed with the port's stages from the
-JAX-trained tiny victims, against tests/golden/.
+JAX-trained tiny victims, then the classifier and transfer goldens (:145-227)
+from the JAX CLIs' bridged checkpoints, against tests/golden/.
 """
 
 import os
@@ -361,6 +367,128 @@ def test_make_synthetic_data_cli_matches_jax(tmp_path, monkeypatch):
     assert len(trees[0]) == 10 and trees[1] == trees[0]
 
 
+CLS_DATA_TYPES = ("target", "adversarial", "source", "before_defense", "after_defense")
+TRANSFER_KINDS = {"atlasnet": ("AtlasNet", {"number_points": 64}), "foldingnet": ("FoldingNet", {})}
+
+
+def run_cli(package, stage, argv, monkeypatch, device=True):
+    """One stage of ``package`` ("jax" or "port", the port's on the CPU)."""
+    import importlib
+
+    root = "geometric_adv_tpu" if package == "jax" else "geometric_adv_tpu_torch"
+    mod = importlib.import_module(f"{root}.cli.{stage}")
+    if package == "jax":
+        monkeypatch.setattr(sys, "argv", ["stage"] + argv)
+        return mod.main()
+    return mod.main(argv + (["--device", "cpu"] if device else []))
+
+
+def bridge_tree(jax_dir, port_dir, epoch):
+    from geometric_adv_tpu.train import checkpoint as jax_ckpt
+
+    tree = jax_ckpt.restore_checkpoint(jax_dir, epoch)
+    bridge_checkpoint(tree["params"], tree["batch_stats"], port_dir, epoch)
+
+
+@pytest.fixture(scope="module")
+def cls_transfer_dirs(slice_dirs):
+    """The classifier and transfer stages on the slice fixture's attack and
+    critical defense: the JAX CLIs on the JAX victim, the port's on its own,
+    from checkpoints bridged from the JAX ones. The classifier is trained one
+    epoch by the JAX CLI (which writes pc_pred_labels; the port's labels are
+    its classify on the bridged checkpoint); AtlasNet (SPHERE, 64 points)
+    and FoldingNet are saved at their flax init."""
+    from geometric_adv_tpu.transfer import get_transfer_ae, save_transfer_arch
+    from geometric_adv_tpu_torch.classify import ClassifierTrainer
+    from geometric_adv_tpu_torch.transfer import save_transfer_arch as port_save_arch
+    from geometric_adv_tpu_torch.utils.artifacts import load_data
+
+    d = osp.dirname(osp.dirname(osp.dirname(slice_dirs[0])))
+    aes = {"jax": "log/jax_ae", "port": "log/port_ae"}
+    with pytest.MonkeyPatch.context() as mp:
+        run_cli("jax", "train_classifier",
+                ["--project_dir", d, "--ae_folder", aes["jax"], "--data_folder", "data/tiny",
+                 "--max_epoch", "1", "--batch_size", "8", "--train_folder", "log/jax_cls"], mp)
+        bridge_tree(osp.join(d, "log/jax_cls"), osp.join(d, "log/port_cls"), 1)
+        port_cls = ClassifierTrainer(num_classes=len(CLASSES), device="cpu").restore(osp.join(d, "log/port_cls"))
+        ev = slice_dirs[1]
+        np.save(osp.join(ev, "pc_pred_labels_test_set_13l.npy"),
+                port_cls.classify(load_data(ev, None, ["point_clouds_test_set"])))
+        for kind, (_, arch) in TRANSFER_KINDS.items():
+            jt = get_transfer_ae(kind, n_points_input=64, **arch)
+            jt.save(osp.join(d, f"log/jax_{kind}"), 1)
+            save_transfer_arch(osp.join(d, f"log/jax_{kind}"), kind, **arch)
+            bridge_tree(osp.join(d, f"log/jax_{kind}"), osp.join(d, f"log/port_{kind}"), 1)
+            port_save_arch(osp.join(d, f"log/port_{kind}"), kind, **arch)
+        for package, ae in aes.items():
+            a = ["--project_dir", d, "--ae_folder", ae, "--attack_pc_idx", f"{ae}/{SEL}"]
+            for dt in CLS_DATA_TYPES:
+                run_cli(package, "run_classifier", a + [
+                    "--data_type", dt, "--classifier_folder", f"log/{package}_cls"], mp)
+                for ct in ("hit_target", "avoid_source"):
+                    run_cli(package, "evaluate_classifier", a + [
+                        "--data_type", dt, "--classification_type", ct], mp)
+            for kind, (name, _) in TRANSFER_KINDS.items():
+                folder = f"log/{package}_{kind}"
+                run_cli(package, "tst_transfer", ["--project_dir", d, "--ae_folder", ae,
+                                                  "--ae_type", kind, "--train_folder", folder], mp)
+                run_cli(package, "run_transfer", a + ["--transfer_ae_type", name,
+                                                      "--transfer_ae_folder", folder], mp)
+                run_cli(package, "evaluate_transfer", a + ["--transfer_ae_type", name], mp)
+    return d, slice_dirs
+
+
+def test_slice_classifier_labels_match_jax(cls_transfer_dirs):
+    _, dirs = cls_transfer_dirs
+    want, got = load_pair(dirs, "pc_pred_labels_test_set_13l.npy")
+    assert got.dtype == want.dtype == np.int8
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("data_type", CLS_DATA_TYPES)
+def test_slice_run_and_evaluate_classifier_match_jax(cls_transfer_dirs, data_type):
+    _, dirs = cls_transfer_dirs
+    res = "attack_res/"
+    folder, name = {
+        "target": ("classifier_res_orig", "target_pc_recon_pred.npy"),
+        "adversarial": ("classifier_res", "adversarial_pc_recon_pred.npy"),
+        "source": ("defense_critical_res/classifier_res_orig", "source_pc_recon_pred.npy"),
+        "before_defense": ("defense_critical_res/classifier_res",
+                           "adversarial_pc_recon_pred.npy"),
+        "after_defense": ("defense_critical_res/classifier_res", "defended_pc_recon_pred.npy"),
+    }[data_type]
+    for cls in CLASSES:
+        want, got = load_pair(dirs, f"{res}{folder}/{cls}/{name}")
+        assert got.dtype == want.dtype == np.int8 and got.shape == want.shape == (1, 8)
+        np.testing.assert_array_equal(got, want)
+    stats_folder = ("defense_critical_res/classifier_res" if data_type == "before_defense"
+                    else folder)
+    for ct in ("hit_target", "avoid_source"):
+        texts = [open(osp.join(e, f"{res}{stats_folder}/over_classes/"
+                               f"eval_stats_{data_type}_{ct}.txt")).read() for e in dirs]
+        assert "over classes" in texts[0] and texts[1] == texts[0], ct
+
+
+@pytest.mark.parametrize("kind", sorted(TRANSFER_KINDS))
+def test_slice_transfer_matches_jax(cls_transfer_dirs, kind):
+    d, dirs = cls_transfer_dirs
+    name = TRANSFER_KINDS[kind][0].lower()
+    loss = [np.load(osp.join(d, f"log/{p}_{kind}/eval/ae_loss_test_set_13l.npy"))
+            for p in ("jax", "port")]
+    np.testing.assert_allclose(loss[1], loss[0], rtol=1e-5)
+    for cls in CLASSES:
+        res = f"attack_res/transfer_res_{name}/{cls}/"
+        want, got = load_pair(dirs, res + "transfer_metrics.npy")
+        assert got.shape == want.shape == (1, 8, 4) and got.dtype == want.dtype
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-6)
+        want, got = load_pair(dirs, res + "transferred_pc_recon.npy")
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    texts = [open(osp.join(e, f"attack_res/transfer_res_{name}/over_classes/"
+                              "eval_stats.txt")).read() for e in dirs]
+    assert "Tra" in texts[0] and texts[1] == texts[0]
+
+
 EMD_ATTACK = ATTACK + ["--loss_dist_type", "pert"]
 
 
@@ -448,8 +576,10 @@ def test_port_train_ae_cli_lowers_the_loss(tmp_path, loss):
 @pytest.mark.slow
 def test_port_replays_cli_pipeline_goldens(tmp_path, monkeypatch):
     """tests/test_cli_pipeline.py:50-120 with the port's stages after the
-    JAX-trained victim, the defenses included, against tests/golden/ at the
-    bars above."""
+    JAX-trained victim, the defenses included, then the classifier's labels
+    and both transfer AEs' test loss and transfer metrics from the JAX
+    CLIs' checkpoints bridged (tests/test_cli_pipeline.py:145-227), against
+    tests/golden/ at the bars above."""
     from geometric_adv_tpu.train import checkpoint as jax_ckpt
 
     d = str(tmp_path)
@@ -511,6 +641,53 @@ def test_port_replays_cli_pipeline_goldens(tmp_path, monkeypatch):
             np.load(osp.join(att, "..", f"defense_{defense}_res", "sphere",
                              "defense_metrics.npy")),
             golden(f"defense_{defense}_metrics_sphere.npy"), rtol=2e-4, atol=1e-6)
+
+    # the classifier and transfer goldens: the JAX CLIs train as
+    # tests/test_cli_pipeline.py:145-227 does, their checkpoints are bridged
+    # and the port's stages replay on the port's attack
+    from geometric_adv_tpu_torch.classify import ClassifierTrainer
+    from geometric_adv_tpu_torch.transfer import save_transfer_arch
+    from geometric_adv_tpu_torch.utils.artifacts import load_data
+
+    data = ["--ae_folder", ae, "--data_folder", "data/tiny", "--batch_size", "8"]
+    for module, args in (
+        ("train_classifier", data + ["--max_epoch", "2"]),
+        ("train_transfer", data + ["--ae_type", "atlasnet", "--epochs", "2",
+                                   "--number_points", "64"]),
+        ("train_transfer", data + ["--ae_type", "foldingnet", "--epochs", "1"]),
+    ):
+        res = subprocess.run(
+            [sys.executable, "-m", f"geometric_adv_tpu.cli.{module}",
+             "--project_dir", d, *args],
+            env=env, capture_output=True, text=True, timeout=600,
+        )
+        assert res.returncode == 0, res.stderr[-3000:]
+    cls_dir = osp.join(d, "log/pointnet")
+    bridge_tree(cls_dir, cls_dir, jax_ckpt.latest_epoch(cls_dir))
+    labels = ClassifierTrainer(num_classes=len(CLASSES), device="cpu").restore(
+        cls_dir).classify(load_data(ev, None, ["point_clouds_test_set"]))
+    want = golden("pc_pred_labels_test_set.npy")
+    assert labels.dtype == want.dtype
+    np.testing.assert_array_equal(labels, want)
+    sel = f"{ae}/{SEL}"
+    for kind, (name, arch) in TRANSFER_KINDS.items():
+        folder = f"log/{kind}_for_transfer"
+        tdir = osp.join(d, folder)
+        bridge_tree(tdir, tdir, jax_ckpt.latest_epoch(tdir))
+        save_transfer_arch(tdir, kind, **arch)
+        run_cli("port", "tst_transfer", ["--project_dir", d, "--ae_folder", ae,
+                                         "--ae_type", kind, "--train_folder", folder],
+                monkeypatch)
+        run_cli("port", "run_transfer", ["--project_dir", d, "--ae_folder", ae,
+                                         "--attack_pc_idx", sel, "--transfer_ae_type", name,
+                                         "--transfer_ae_folder", folder], monkeypatch)
+        np.testing.assert_allclose(
+            np.load(osp.join(tdir, "eval", "ae_loss_test_set_13l.npy")),
+            golden(f"transfer_test_loss_{kind}.npy"), rtol=1e-5)
+        np.testing.assert_allclose(
+            np.load(osp.join(att, "..", f"transfer_res_{name.lower()}", "sphere",
+                             "transfer_metrics.npy")),
+            golden(f"transfer_metrics_{kind}_sphere.npy"), rtol=2e-4, atol=1e-6)
 
 
 @pytest.mark.slow
