@@ -62,7 +62,7 @@ the script exits non-zero:
      AtlasNet and FoldingNet losses) on tie clouds, K1 bit-equal to its
      plain version, K3 to the host's ascending-j sums; second runs
      bit-equal; each timed beside its bound and plain version;
-4. thirteen legs through the port's entry points on ``--device cuda``, each
+4. the legs through the port's entry points on ``--device cuda``, each
    with the launch counts zeroed just before and read just after:
    - chamfer: ``train_ae --loss chamfer`` (2048 points, 2 epochs), tst_ae,
      prepare_indices_for_attack (all three index kinds), run_attack
@@ -96,6 +96,25 @@ the script exits non-zero:
      must launch exactly on the refresh schedule, K1, K2, K3 never;
    - fused: run_attack ``--chamfer_impl fused``; K5 must launch, K1 and K3
      never;
+   - the native PLY loader over the written tree beside the python parser
+     (the chamfer leg's datasets must all have been parsed natively);
+   - sparse and dense encoder VJP: run_attack ``--encoder_vjp sparse`` and
+     ``dense`` (``--chamfer_impl composed``, 100/80 iterations, 24 pairs a
+     call), each a leg (K1 and K3 must launch, the sparse backward exactly
+     once an iteration in the sparse leg and never in the dense one), then
+     both at 250 pairs in one call;
+   - precision: tst_ae and a 20/10 attack (composed) in float32, at
+     ``--matmul_precision tensorfloat32`` and on the victim's weights in
+     bfloat16 (``ae_dtype``), each a leg (K1 and K3 must launch; the TF32
+     flags are off after each);
+   - import: a reference-named victim at the full width mapped and written
+     by the importer's functions, with its configuration from a reference
+     configuration.txt, then tst_ae, prepare_indices_for_attack and a 20/10
+     attack on it (K1 and K3 must launch); reference-layout AtlasNet and
+     FoldingNet checkpoints imported by ``import_reference_ckpt`` and
+     restored by tst_transfer; the CLI's TF branch;
+   - ``verify_cuda`` as a stage (its launches compare kernels with their
+     plain versions and are not counted);
    - EMD: ``train_ae --loss emd`` (2048 points, batch 50, 3 epochs), then the
      same stages with run_attack cut to 100/80 iterations; K7 and K2 must
      launch;
@@ -124,6 +143,13 @@ the script exits non-zero:
    the (cloud, class) pairs and at k = C equals it on one class; the
    binary search's weights stay within their bounds and its best distances
    at or below its first step's; the trace names K1's and K3's kernels;
+   the sparse encoder VJP's z bit-equal to dense's and its gradient within
+   2e-5 of the largest entry at [24, 2048] (mask flips printed), its attack
+   within rtol 2e-4 / atol 1e-6 of dense on 2 pairs over 30 iterations (the
+   100-iteration drift printed beside that of sources one ulp up); the
+   imported victim's reconstructions within rtol 1e-5 / atol 1e-5 of the
+   host's, the imported transfer AEs' test losses finite, the TF branch's
+   ImportError; every verify_cuda check passed;
    the classifier's test-set labels recomputed on the host equal the
    card's except at near-ties (each printed with its margin), its label and
    eval_stats artifacts complete; each transfer AE's artifacts of the JAX
@@ -140,8 +166,11 @@ the script exits non-zero:
    ``knn_point`` at [100, 2048^2], the classifier's train samples/s and
    inference clouds/s at batch 250, AtlasNet's and FoldingNet's train
    samples/s, ``knn_point``'s share of a FoldingNet step (with its
-   profile), metro's seconds a mesh pair, and the peak device memory of
-   each leg.
+   profile), metro's seconds a mesh pair, the native loader's and the
+   python parser's seconds, the sparse and dense attacks' pair-iters/s (24
+   pairs a call, 250 in one call, with profiles and peak memory), the
+   float32, TF32 and bfloat16 victims' tst_ae seconds and attack rates with
+   their deviation from float32, and the peak device memory of each leg.
 
 Its last lines are a JSON record of the kernels (each with its shape, its
 time and how it was taken (``ms_by``), the plain version's, its bound and
@@ -163,6 +192,7 @@ import time
 import numpy as np
 import torch
 
+from geometric_adv_tpu_torch.cli.verify_cuda import tie_clouds
 from geometric_adv_tpu_torch.ops.cuda.timing import device_timed, sync_timed
 
 ROOT = osp.dirname(osp.abspath(__file__))
@@ -239,32 +269,6 @@ OWN_KERNELS = {
 
 def fail(msg: str):
     raise RuntimeError(msg)
-
-
-def tie_clouds(b, n, m, seed):
-    """Seeded uniform clouds with exact ties: a duplicated point in each
-    cloud and a query point that coincides with a point of the other; at
-    2048 points and more, ties that straddle K1's boundaries
-    (tests/test_torch_ops_chamfer_ties.py): rows 3 and 1500 (other tiles
-    and blocks) on column 7, columns 5 and 1800 (other steps) on row 40,
-    rows 255/256 (a tile boundary) on column 300, columns 255/256 (a step
-    boundary) on row 600, past 2048 rows also row 2100 on column 7."""
-    rng = np.random.RandomState(seed)
-    x1 = rng.rand(b, n, 3).astype(np.float32)
-    x2 = rng.rand(b, m, 3).astype(np.float32)
-    x2[:, 5] = x2[:, 17]
-    x1[:, 9] = x1[:, 41]
-    x1[:, 3] = x2[:, 7]
-    if n >= 2048 and m >= 2048:
-        x1[:, 1500] = x2[:, 7]
-        x2[:, 1800] = x2[:, 5]
-        x1[:, 40] = x2[:, 5]
-        x1[:, 255] = x1[:, 256] = x2[:, 300]
-        x2[:, 256] = x2[:, 255]
-        x1[:, 600] = x2[:, 255]
-        if n > 2100:
-            x1[:, 2100] = x2[:, 7]
-    return torch.from_numpy(x1).cuda(), torch.from_numpy(x2).cuda()
 
 
 def check_straddling_ties(k1, shape):
@@ -988,15 +992,17 @@ def check_attack_effect(project, ae, attack_folder="attack_res"):
 
 def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
                          columns=(0, 1, 2, 3, 4), card_kw=None, ref_kw=None,
-                         ref_device="cpu", n_points=N_POINTS):
+                         ref_device="cpu", n_points=N_POINTS, card_encode=None,
+                         tol=(1e-3, 1e-5)):
     """The attack on the card (kernels) against the same attack on the host
     CPU (plain versions), ``pairs`` x ``n_points`` points at two dist weights;
-    ``card_kw`` and ``ref_kw`` are attack_batch options of the two runs, and
-    ``ref_device`` "cuda" holds two modes against each other on the card.
-    Tolerance rtol 1e-3 / atol 1e-5 on the metric ``columns`` (loss_adv,
-    loss_dist, S-CD, T-NRE, T-RE): the card's and the host's BLAS sum the
-    victim's matmuls in different orders, and the Adam steps carry that
-    difference forward. The other columns are printed."""
+    ``card_kw`` and ``ref_kw`` are attack_batch options of the two runs,
+    ``card_encode`` replaces the card run's encoder, and ``ref_device``
+    "cuda" holds two modes against each other on the card. Tolerance
+    ``tol`` (rtol, atol), by default 1e-3 / 1e-5, on the metric ``columns``
+    (loss_adv, loss_dist, S-CD, T-NRE, T-RE): the card's and the host's BLAS
+    sum the victim's matmuls in different orders, and the Adam steps carry
+    that difference forward. The other columns are printed."""
     import copy
 
     from geometric_adv_tpu_torch.attack.core import attack_batch
@@ -1014,16 +1020,18 @@ def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
         t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         with torch.no_grad():
             tz = model.encode(t(gt))
+        encode = card_encode if name == "card" and card_encode else model.encode
         outs[name] = attack_batch(
-            model.encode, model.decode, t(x), tz, t(gt), t(ref), [1.0, 3.0],
+            encode, model.decode, t(x), tz, t(gt), t(ref), [1.0, 3.0],
             num_iterations=iters[0], num_iterations_thresh=iters[1],
             ae_loss_type=loss, loss_dist_type=dist, pert0=t(pert0), **kw,
         )
     err = np.abs(outs["card"].metrics - outs["ref"].metrics)
-    lim = 1e-5 + 1e-3 * np.abs(outs["ref"].metrics)
+    lim = tol[1] + tol[0] * np.abs(outs["ref"].metrics)
     held = list(columns)
     rel = err / np.abs(outs["ref"].metrics)
-    print(f"{loss} attack {card_kw or ''}, loss_dist_type {dist}, card vs "
+    print(f"{loss} attack {card_kw or ''}{' (sparse encoder VJP)' if card_encode else ''}, "
+          f"loss_dist_type {dist}, tolerance {tol}, card vs "
           f"{'host' if ref_device == 'cpu' else 'card'} {ref_kw or ''} ({pairs} "
           f"pairs of {n_points} points, {iters[0]} iterations): columns {held} max abs diff "
           f"{err[..., held].max():.3g}, max ratio to tolerance "
@@ -1035,10 +1043,10 @@ def check_attack_vs_host(victim, loss, pairs, iters, dist="chamfer",
 
 
 def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20,
-                              n_points=N_POINTS, **kw):
+                              n_points=N_POINTS, encode=None, **kw):
     """Attack pair-iterations/s at ``pairs`` pairs of ``n_points``-point
     clouds (by default the reference's attack batch, 250), with the attack_batch
-    options ``kw``, then a torch.profiler breakdown of 5 iterations: device
+    options ``kw`` (``encode`` replaces the victim's), then a torch.profiler breakdown of 5 iterations: device
     time by kernel, the port's own kernels' share by source file, and the
     device's busy share of the wall clock."""
     from torch.profiler import ProfilerActivity, profile
@@ -1050,11 +1058,12 @@ def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20,
     gt = torch.from_numpy(rng.rand(pairs, n_points, 3).astype(np.float32) - 0.5).cuda()
     ref = torch.ones(pairs, device="cuda")
     model = victim.model
+    encode = encode or model.encode
     with torch.no_grad():
         tz = model.encode(gt)
 
     def run(n_iter):
-        return attack_batch(model.encode, model.decode, x, tz, gt, ref, [1.0],
+        return attack_batch(encode, model.decode, x, tz, gt, ref, [1.0],
                             num_iterations=n_iter, num_iterations_thresh=1, **kw)
 
     run(2)  # warm-up
@@ -1773,6 +1782,406 @@ def check_metro(project, stages, metro):
     return seconds / n_pairs
 
 
+# --- the native loader, the sparse VJP, precision, the importers, verify_cuda --
+
+SPARSE_ITERS = (100, 80)  # the sparse/dense attack pair's iterations
+SPARSE_RTOL, SPARSE_ATOL = 2e-4, 1e-6  # tests/test_sparse_encode.py:161-164
+RECON_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_torch_model_ae.py:18
+
+
+def native_loader_check(project, data):
+    """The native PLY batch loader against the python parser on the written
+    tree: the same clouds, the native path counted, both timed."""
+    from geometric_adv_tpu_torch import native
+    from geometric_adv_tpu_torch.data import datasets
+
+    if native.get_module() is None:
+        fail(f"the native PLY loader did not build: {native.build_error}")
+    files = sorted(datasets.files_in_subdirs(osp.join(project, data), ".ply"))
+    before = dict(datasets.LOADS)
+    t0 = time.time()
+    fast = datasets.load_point_clouds_from_filenames(files)
+    native_s = time.time() - t0
+    t0 = time.time()
+    slow = datasets.load_point_clouds_from_filenames(files, use_native=False)
+    python_s = time.time() - t0
+    if datasets.LOADS["native"] != before["native"] + 1:
+        fail(f"the native loader did not serve the call: {datasets.LOADS}")
+    if not (np.array_equal(fast[0], slow[0]) and list(fast[1]) == list(slow[1])
+            and list(fast[2]) == list(slow[2])):
+        fail("the native PLY loader disagrees with the python parser")
+    print(f"native PLY loader: {len(files)} files of {fast[0].shape[1]} points in "
+          f"{native_s:.4f} s, the python parser (8 threads) {python_s:.4f} s; "
+          "clouds, model names and class ids equal")
+    return {"native s": native_s, "python s": python_s}
+
+
+def sparse_legs(project, ae, victim, counters, n_pairs):
+    """run_attack --encoder_vjp sparse and dense (composed chamfer, 24 pairs
+    a call, SPARSE_ITERS) on the chamfer victim: the sparse backward counted,
+    the same final metrics within rtol 2e-4 / atol 1e-6; the first-step
+    gradient and z at 2048 points; both at 250 pairs in one call."""
+    from geometric_adv_tpu_torch.cli.verify_cuda import SPARSE_SCALED, sparse_vs_dense
+    from geometric_adv_tpu_torch.models import sparse_encode
+
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.rand(24, N_POINTS, 3).astype(np.float32) - 0.5).cuda()
+    res = sparse_vs_dense(victim.model, x)
+    print(f"sparse encoder VJP at [24, {N_POINTS}]: z bit-equal {res['z_equal']}, "
+          f"gradient max abs diff {res['max_abs']:.3g} ({res['max_rel']:.3g} of its "
+          f"largest entry; bar {SPARSE_SCALED}), elementwise at rtol 2e-5 / atol 1e-7 "
+          f"{res['elementwise']}, ReLU mask flips {res['flips']}")
+    if not (res["z_equal"] and res["max_rel"] <= SPARSE_SCALED
+            and res["backward_calls"] == 1):
+        fail(f"the sparse encoder VJP disagrees with dense autograd: {res}")
+    grads = {}
+    for impl in ("onehot", "onehot", "scatter"):
+        sparse_encode.SCATTER_IMPL = impl
+        xr = x.clone().requires_grad_(True)
+        sparse_encode.make_sparse_encode(victim.model)(xr).sum().backward()
+        grads.setdefault(impl, []).append(xr.grad)
+    sparse_encode.SCATTER_IMPL = "onehot"
+    scatter_diff = float((grads["scatter"][0] - grads["onehot"][0]).abs().max())
+    print(f"sparse backward's return to point rows: onehot second run bit-equal "
+          f"{torch.equal(*grads['onehot'])}; scatter (index_add_) from onehot "
+          f"{scatter_diff:.3g}")
+    if not torch.equal(*grads["onehot"]):
+        fail("the onehot sparse backward is not bit-equal on a second run")
+    rates, metrics, total = {}, {}, {}
+    for vjp in ("sparse", "dense"):
+        calls = sparse_encode.BACKWARD_CALLS
+        out = f"attack_res_{vjp}"
+        counts, stages = leg(f"{vjp} encoder VJP attack", counters, lambda: run_stages([
+            attack_stage(project, ae, SPARSE_ITERS, out,
+                         ["--encoder_vjp", vjp, "--chamfer_impl", "composed"])]),
+            ("nn_distance_cuda", "chamfer_grad1_cuda"))
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        ran = sparse_encode.BACKWARD_CALLS - calls
+        want = SPARSE_ITERS[0] * len(CLASSES) if vjp == "sparse" else 0
+        if ran != want:
+            fail(f"the {vjp} attack ran the sparse backward {ran} times, not {want}")
+        impl = json.load(open(osp.join(project, ae, "eval", out, "attack_impl.json")))
+        if impl["encoder_vjp"] != vjp:
+            fail(f"the {vjp} attack recorded encoder VJP {impl['encoder_vjp']}")
+        seconds = stages["run_attack"][0]
+        rates[f"{vjp} attack pair-iters/s, 24 pairs a call"] = (
+            n_pairs * SPARSE_ITERS[0] / seconds)
+        metrics[vjp] = np.stack([
+            np.load(osp.join(project, ae, "eval", out, c, "adversarial_metrics.npy"))
+            for c in CLASSES])
+        print(f"{vjp} encoder VJP attack: {rates[f'{vjp} attack pair-iters/s, 24 pairs a call']:.1f} "
+              f"pair-iters/s ({n_pairs} pairs x {SPARSE_ITERS[0]} iterations in "
+              f"{seconds:.2f} s, stage wall clock); sparse backward passes {ran}")
+    err = np.abs(metrics["sparse"] - metrics["dense"])
+    lim = SPARSE_ATOL + SPARSE_RTOL * np.abs(metrics["dense"])
+    print(f"sparse vs dense final metrics after {SPARSE_ITERS[0]} iterations: max abs "
+          f"diff {err.max():.3g}, max ratio to rtol {SPARSE_RTOL} / atol {SPARSE_ATOL} "
+          f"{(err / lim).max():.3g}")
+    # the trajectory at the JAX test's bar, where Adam has not yet carried
+    # float32 noise into other steps; beside it, how far two dense runs
+    # apart by one ulp of their sources drift over SPARSE_ITERS
+    check_attack_vs_host(victim, "chamfer", 2, (30, 20), ref_device="cuda",
+                         card_encode=sparse_encode.make_sparse_encode(victim.model),
+                         card_kw=dict(chamfer_method="composed"),
+                         ref_kw=dict(chamfer_method="composed"),
+                         tol=(SPARSE_RTOL, SPARSE_ATOL))
+    drift_control(project, ae, victim, metrics)
+    for vjp in ("sparse", "dense"):
+        model = victim.model
+        encode = (sparse_encode.make_sparse_encode(model) if vjp == "sparse"
+                  else model.encode)
+        torch.cuda.reset_peak_memory_stats()
+        calls = sparse_encode.BACKWARD_CALLS
+        rates[f"{vjp} attack pair-iters/s, 250 pairs in one call"] = (
+            attack_at_reference_batch(victim, f"{vjp} encoder VJP", encode=encode,
+                                      chamfer_method="composed"))
+        if (sparse_encode.BACKWARD_CALLS > calls) != (vjp == "sparse"):
+            fail(f"the {vjp} attack at 250 pairs took the wrong encoder backward")
+        print(f"{vjp} encoder VJP attack at 250 pairs: peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return rates, total
+
+
+def drift_control(project, ae, victim, metrics):
+    """The first class's 24 pairs attacked in process for SPARSE_ITERS:
+    dense, sparse, and dense from sources one ulp away; prints how far the
+    sparse run's final metrics and the nudged dense run's drift from the
+    dense run's (the CLI's sparse/dense pair is printed above)."""
+    from geometric_adv_tpu_torch.attack.core import attack_batch
+    from geometric_adv_tpu_torch.cli.common import AttackContext
+    from geometric_adv_tpu_torch.models import sparse_encode
+
+    ctx = AttackContext(project, ae,
+                        attack_pc_idx=f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy")
+    src, tgt = ctx.class_attack_data(CLASSES[0], ctx.point_clouds, 2)
+    tz = ctx.class_attack_data(CLASSES[0], ctx.latent_vectors, 2)[1]
+    ref = ctx.class_attack_data(CLASSES[0], ctx.ae_loss, 2)[1].reshape(-1)
+    model = victim.model
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    nudged = np.nextafter(src, np.float32(np.inf))
+    runs = {}
+    for name, encode, source in (
+            ("dense", model.encode, src),
+            ("sparse", sparse_encode.make_sparse_encode(model), src),
+            ("dense, sources one ulp up", model.encode, nudged)):
+        runs[name] = attack_batch(
+            encode, model.decode, t(source), t(tz), t(tgt), t(ref), [1.0],
+            num_iterations=SPARSE_ITERS[0], num_iterations_thresh=SPARSE_ITERS[1],
+            chamfer_method="composed").metrics
+    cli = np.abs(metrics["sparse"][0] - metrics["dense"][0]).max()
+    print(f"drift after {SPARSE_ITERS[0]} iterations over {CLASSES[0]}'s {len(src)} "
+          f"pairs, max abs diff of the final metrics from the dense run: sparse "
+          f"{np.abs(runs['sparse'] - runs['dense']).max():.3g}, dense from sources one "
+          f"ulp up {np.abs(runs['dense, sources one ulp up'] - runs['dense']).max():.3g} "
+          f"(the CLI runs' sparse vs dense on that class: {cli:.3g})")
+
+
+def precision_legs(project, ae, data, counters):
+    """tst_ae and a 20/10 attack at --matmul_precision tensorfloat32 beside
+    float32, then the same stages on the victim's weights computing in
+    bfloat16 (``ae_dtype``): rates and the deviation from float32 printed;
+    the TF32 flags are off again after each stage."""
+    from geometric_adv_tpu_torch.cli import tst_ae
+    from geometric_adv_tpu_torch.train import checkpoint as ckpt
+    from geometric_adv_tpu_torch.train.config import Configuration
+
+    rates, total = {}, {}
+    ev = osp.join(project, ae, "eval")
+    recon32 = np.load(osp.join(ev, "reconstructions_test_set_13l.npy"))
+    bf16 = "log/autoencoder_victim_bf16"
+    conf = Configuration.load(osp.join(project, ae, "configuration"))
+    conf.ae_dtype = "bfloat16"
+    conf.train_dir = osp.join(project, bf16)
+    conf.save(osp.join(project, bf16, "configuration"))
+    epoch = ckpt.latest_epoch(osp.join(project, ae))
+    ckpt.save_checkpoint(osp.join(project, bf16), epoch,
+                         ckpt.restore_checkpoint(osp.join(project, ae), epoch)["state_dict"])
+    common = ["--project_dir", project, "--device", "cuda"]
+    cases = (("float32", ae, []), ("tensorfloat32", ae, ["--matmul_precision", "tensorfloat32"]),
+             ("bfloat16 victim", bf16, []))
+    attack = {}
+    for label, folder, flags in cases:
+        out_eval = "eval" if folder == bf16 else f"eval_{label}"
+        stages_list = [("tst_ae", tst_ae.main, common + [
+            "--data_folder", data, "--train_folder", folder,
+            "--output_folder_name", out_eval] + flags)]
+        if folder == bf16:
+            from geometric_adv_tpu_torch.cli import prepare_indices_for_attack
+
+            stages_list.append(("prepare_indices_for_attack", prepare_indices_for_attack.main,
+                                common + ["--ae_folder", folder, "--get_rand_idx", "1",
+                                          "--get_latent_nn_idx", "1", "--get_chamfer_nn_idx",
+                                          "1", "--num_instance_per_class", "4"]))
+        out = f"attack_res_precision_{label.split()[0]}"
+        stages_list.append(attack_stage(project, folder, (20, 10), out,
+                                        ["--chamfer_impl", "composed", *flags]))
+        counts, stages = leg(f"precision {label}", counters, lambda: run_stages(stages_list),
+                             ("nn_distance_cuda", "chamfer_grad1_cuda"))
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+            fail(f"the TF32 flags are on after the {label} stages")
+        recon = np.load(osp.join(project, folder, out_eval, "reconstructions_test_set_13l.npy"))
+        if not np.isfinite(recon).all():
+            fail(f"non-finite reconstructions at {label}")
+        attack[label] = np.stack([np.load(osp.join(
+            project, folder, "eval", out, c, "adversarial_metrics.npy")) for c in CLASSES])
+        seconds = stages["run_attack"][0]
+        n = attack[label].shape[2]
+        rates[f"{label} attack pair-iters/s (20 iterations)"] = n * len(CLASSES) * 20 / seconds
+        rates[f"{label} tst_ae s"] = stages["tst_ae"][0]
+        dev_recon = float(np.abs(recon - recon32).max())
+        dev_metrics = float(np.max(np.abs(attack[label] - attack["float32"])
+                                   / np.maximum(np.abs(attack["float32"]), 1e-12)))
+        print(f"precision {label}: tst_ae {stages['tst_ae'][0]:.2f} s, reconstructions "
+              f"max abs deviation from float32 {dev_recon:.3g}; 20/10 attack "
+              f"{rates[f'{label} attack pair-iters/s (20 iterations)']:.1f} pair-iters/s, "
+              f"metrics max relative deviation from float32 {dev_metrics:.3g}")
+    return rates, total
+
+
+def reference_ae_variables(seed, scope="autoencoder", enc=(64, 128, 128, 256, 128),
+                           dec=(256, 256, 3 * N_POINTS)):
+    """A reference-named victim (tests/test_import_tf.py:48-85's layout) at
+    the full width: tflearn conv filters [1, 1, c_in, c_out], BN moving
+    statistics, the decoder's FC layers and the epoch counter."""
+    rng = np.random.RandomState(seed)
+    v = {f"{scope}/epoch": np.float32(500.0)}
+    c_in = 3
+    for i, width in enumerate(enc):
+        base = f"{scope}/encoder_conv_layer_{i}"
+        v[f"{base}/W"] = (rng.randn(1, 1, c_in, width) / np.sqrt(c_in)).astype(np.float32)
+        v[f"{base}/b"] = (rng.randn(width) * 0.1).astype(np.float32)
+        bn = f"{base}_bnorm"
+        v[f"{bn}/beta"] = (rng.randn(width) * 0.1).astype(np.float32)
+        v[f"{bn}/gamma"] = (1 + rng.randn(width) * 0.1).astype(np.float32)
+        v[f"{bn}/moving_mean"] = (rng.randn(width) * 0.1).astype(np.float32)
+        v[f"{bn}/moving_variance"] = (0.5 + rng.rand(width)).astype(np.float32)
+        c_in = width
+    for j, width in enumerate(dec):
+        base = f"{scope}/decoder_fc_{j}"
+        v[f"{base}/W"] = (rng.randn(c_in, width) / np.sqrt(c_in)).astype(np.float32)
+        v[f"{base}/b"] = (rng.randn(width) * 0.01).astype(np.float32)
+        c_in = width
+    return v
+
+
+def reference_torch_state(kind, seed):
+    """A reference-layout AtlasNet (``module.``-prefixed, Conv1d weights
+    [c_out, c_in, 1], one SPHERE primitive, bottleneck 1024, hidden 512, 2
+    extra layers) or FoldingNet checkpoint dict at the full width."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def dense(base, c_in, c_out, conv=True):
+        shape = (c_out, c_in, 1) if conv else (c_out, c_in)
+        sd[f"{base}.weight"] = torch.randn(shape, generator=gen) / c_in ** 0.5
+        sd[f"{base}.bias"] = torch.randn(c_out, generator=gen) * 0.01
+
+    def bn(base, c):
+        sd[f"{base}.weight"] = 1 + torch.randn(c, generator=gen) * 0.1
+        sd[f"{base}.bias"] = torch.randn(c, generator=gen) * 0.1
+        sd[f"{base}.running_mean"] = torch.randn(c, generator=gen) * 0.1
+        sd[f"{base}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{base}.num_batches_tracked"] = torch.tensor(100)
+
+    if kind == "atlasnet":
+        for i, (a, b) in enumerate(((3, 64), (64, 128), (128, 1024)), 1):
+            dense(f"encoder.conv{i}", a, b)
+            bn(f"encoder.bn{i}", b)
+        for i in (1, 2):
+            dense(f"encoder.lin{i}", 1024, 1024, conv=False)
+            bn(f"encoder.bn{i + 3}", 1024)
+        base = "decoder.decoder.0"
+        dense(f"{base}.conv1", 3, 1024)
+        bn(f"{base}.bn1", 1024)
+        dense(f"{base}.conv2", 1024, 512)
+        bn(f"{base}.bn2", 512)
+        for i in range(2):
+            dense(f"{base}.conv_list.{i}", 512, 512)
+            bn(f"{base}.bn_list.{i}", 512)
+        dense(f"{base}.last_conv", 512, 3)
+        return {f"module.{k}": v for k, v in sd.items()}
+    for i, (a, b) in enumerate(((12, 64), (64, 64), (64, 64), (64, 128), (128, 1024)), 1):
+        dense(f"encoder.conv{i}", a, b)
+        bn(f"encoder.bn{i}", b)
+    dense("encoder.fc1", 1024, 512, conv=False)
+    bn("encoder.bn6", 512)
+    dense("encoder.fc2", 512, 512, conv=False)
+    for fold, c0 in ((1, 514), (2, 515)):
+        dense(f"decoder.fold{fold}.conv1", c0, 512)
+        dense(f"decoder.fold{fold}.conv2", 512, 512)
+        dense(f"decoder.fold{fold}.conv3", 512, 3)
+    return {"epoch": 7, "model": sd, "optimizer": {}}
+
+
+REFERENCE_CONFIG = (  # a reference configuration.txt's lines (src/autoencoder.py:62-73)
+    ("n_input", [N_POINTS, 3]),
+    ("encoder_args", {"n_filters": [64, 128, 128, 256, 128], "b_norm": True,
+                      "b_norm_decay": 0.9}),
+    ("decoder_args", {"layer_sizes": [256, 256, 3 * N_POINTS], "b_norm": False}),
+    ("batch_size", 50), ("learning_rate", 0.0005), ("loss", "chamfer"),
+    ("training_epochs", 500), ("class_names", CLASSES), ("object_class", ["13l"]),
+    ("encoder", "encoder_with_convs_and_symmetry"), ("decoder", "decoder_with_fc_only"),
+)
+
+
+def import_leg(project, data, counters):
+    """The importers at the full width: a reference-named victim mapped and
+    written by the functions the CLI's ``--model ae`` branch runs, its
+    configuration from a reference configuration.txt; tst_ae and a 20/10
+    attack on it (K1, K3), its reconstructions against the same checkpoint
+    on the host; reference-layout AtlasNet and FoldingNet checkpoints
+    imported through the CLI and restored by tst_transfer; the CLI's TF
+    branch exits non-zero with the ImportError message."""
+    import importlib.util
+
+    from geometric_adv_tpu_torch.cli import import_reference_ckpt, tst_transfer
+    from geometric_adv_tpu_torch.cli import prepare_indices_for_attack, tst_ae
+    from geometric_adv_tpu_torch.train.config import Configuration
+    from geometric_adv_tpu_torch.train.import_tf import (
+        map_reference_ae_variables,
+        write_reference_ae,
+    )
+    from geometric_adv_tpu_torch.train.trainer import build_trainer_from_checkpoint
+
+    ae = "log/autoencoder_imported"
+    train_dir = osp.join(project, ae)
+    txt = osp.join(project, "reference_configuration.txt")
+    with open(txt, "w") as f:
+        f.write("".join("%30s: %s\n" % kv for kv in REFERENCE_CONFIG))
+    conf = Configuration.from_reference_txt(txt)
+    conf.train_dir = train_dir
+    conf.save(osp.join(train_dir, "configuration"))
+    params, stats, epoch = map_reference_ae_variables(reference_ae_variables(seed=3))
+    path = write_reference_ae(params, stats, train_dir, epoch, conf)
+    print(f"imported a reference-named victim (epoch {epoch}) -> {path}")
+
+    common = ["--project_dir", project, "--device", "cuda"]
+    stages_list = [
+        ("tst_ae", tst_ae.main, common + ["--data_folder", data, "--train_folder", ae]),
+        ("prepare_indices_for_attack", prepare_indices_for_attack.main,
+         common + ["--ae_folder", ae, "--get_rand_idx", "1", "--get_latent_nn_idx", "1",
+                   "--get_chamfer_nn_idx", "1", "--num_instance_per_class", "4"]),
+        attack_stage(project, ae, (20, 10), "attack_res", ["--chamfer_impl", "composed"]),
+    ]
+    refs = {}
+    for kind in ("atlasnet", "foldingnet"):
+        refs[kind] = osp.join(project, f"reference_{kind}.pth")
+        torch.save(reference_torch_state(kind, seed=4), refs[kind])
+        folder = f"log/{kind}_imported"
+        stages_list += [
+            (f"import_reference_ckpt {kind}", import_reference_ckpt.main,
+             ["--project_dir", project, "--model", kind, "--reference_ckpt", refs[kind],
+              "--train_folder", folder]),
+            (f"tst_transfer {kind}", tst_transfer.main,
+             common + ["--ae_folder", ae, "--ae_type", kind, "--train_folder", folder]),
+        ]
+    counts, stages = leg("import", counters, lambda: run_stages(stages_list),
+                         ("nn_distance_cuda", "chamfer_grad1_cuda"))
+    card = np.load(osp.join(train_dir, "eval", "reconstructions_test_set_13l.npy"))
+    clouds = np.load(osp.join(train_dir, "eval", "point_clouds_test_set_13l.npy"))
+    host = build_trainer_from_checkpoint(conf, train_dir, epoch, "cpu")
+    want = host.get_reconstructions(clouds)
+    err = float(np.abs(card - want).max())
+    print(f"imported victim: reconstructions on the card vs the host max abs diff {err:.3g}")
+    np.testing.assert_allclose(card, want, **RECON_TOL)
+    for kind in ("atlasnet", "foldingnet"):
+        loss = stages[f"tst_transfer {kind}"][1]["loss"]
+        print(f"imported {kind}: test loss {loss:.6f}")
+        if not np.isfinite(loss):
+            fail(f"the imported {kind}'s test loss is not finite")
+    # the card's machine has no tensorflow: the TF branch must stop with the
+    # ImportError's message (where tensorflow exists, on the missing prefix)
+    has_tf = importlib.util.find_spec("tensorflow") is not None
+    argv = ["--project_dir", project, "--model", "ae", "--reference_ckpt",
+            osp.join(project, "models.ckpt-500"), "--train_folder", "log/tf_branch"]
+    try:
+        import_reference_ckpt.main(argv)
+        raised = None
+    except Exception as e:  # noqa: BLE001 -- the error is the check's subject
+        raised = e
+    expected = (raised is not None if has_tf else isinstance(raised, ImportError)
+                and "needs the `tensorflow` package" in str(raised))
+    print(f"import_reference_ckpt --model ae (tensorflow {'present' if has_tf else 'absent'}): "
+          f"{raised!r}")
+    if not expected:
+        fail(f"the CLI's TF branch ended with {raised!r}")
+    return counts
+
+
+def verify_cuda_stage(counters):
+    """``python3 -m geometric_adv_tpu_torch.cli.verify_cuda`` as a stage; it
+    must pass every check."""
+    from geometric_adv_tpu_torch.cli import verify_cuda
+
+    counts, rc = leg("verify_cuda", counters, lambda: verify_cuda.main([]),
+                     ("nn_distance_cuda", "chamfer_loss_payloads_cuda",
+                      "emd_sweep_block_cuda"))
+    if rc != 0:
+        fail(f"verify_cuda exited {rc}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1828,11 +2237,18 @@ def main() -> int:
 
     # --- chamfer leg --------------------------------------------------------
     ae = "log/autoencoder_victim"
+    from geometric_adv_tpu_torch.data import datasets
+
+    loads = dict(datasets.LOADS)
     counts, stages = leg("chamfer", counters, lambda: run_stages(
         [train_stage(project, ae, "data/synthetic", N_POINTS, "chamfer", 2)]
         + attack_stages(project, ae, "data/synthetic", (500, 400))),
         ("nn_distance_cuda", "nn_distance_values_cuda", "chamfer_grad1_cuda"))
     launches = {k: launches[k] + counts[k] for k in launches}
+    served = {k: datasets.LOADS[k] - loads[k] for k in loads}
+    print(f"PLY loads in the chamfer leg by path: {served}")
+    if served["native"] <= 0 or served["python"]:
+        fail(f"the chamfer leg's datasets were not all parsed natively: {served}")
     rates["chamfer train samples/s"] = check_training(project, ae, 2,
                                                       stages["train_ae"])
     check_artifacts(project, ae, len(CLASSES), n_test, N_POINTS)
@@ -1983,6 +2399,25 @@ def main() -> int:
     rates["fused reference-batch attack pair-iters/s"] = attack_at_reference_batch(
         victim, "fused", chamfer_method="fused")
     del victim
+    torch.cuda.synchronize()
+
+    # --- the native PLY loader, the sparse encoder VJP, the precision options,
+    # the importers and verify_cuda, on the chamfer victim and its data ------
+    from geometric_adv_tpu_torch.cli.common import restore_victim
+    from geometric_adv_tpu_torch.train.config import Configuration
+
+    rates["native PLY loader s"] = native_loader_check(project, "data/synthetic")
+    victim = restore_victim(Configuration.load(osp.join(project, ae, "configuration")),
+                            osp.join(project, ae), "cuda")
+    new_rates, sparse_counts = sparse_legs(project, ae, victim, counters, n_pairs)
+    rates.update(new_rates)
+    del victim
+    new_rates, precision_counts = precision_legs(project, ae, "data/synthetic", counters)
+    rates.update(new_rates)
+    for counts in (sparse_counts, precision_counts,
+                   import_leg(project, "data/synthetic", counters)):
+        launches = {k: launches[k] + counts.get(k, 0) for k in launches}
+    verify_cuda_stage(counters)  # checks against plain versions: not counted
     torch.cuda.synchronize()
 
     # --- EMD leg at 2048 points ------------------------------------------------

@@ -43,8 +43,13 @@ Semantic parity notes:
 
 ``binary_search_attack`` is the per-example dist-weight search (reference:
 src/adv_ae.py:253-304) over ``attack_batch`` with [1, B] weights, tracked
-by ``loss_dist``. Not ported: the sparse encoder VJP (ROADMAP Queue 1 item
-6) and meshes (item 7).
+by ``loss_dist``.
+
+``AttackRunner`` differentiates the victim's encoder densely (autograd) or
+through the argmax-sparse VJP (``models/sparse_encode.py``, ``encoder_vjp``),
+and casts the victim's codes and reconstructions to float32, so a bfloat16
+victim's losses and metrics stay float32, as in the JAX package. Not
+ported: meshes (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from geometric_adv_tpu_torch.models import sparse_encode
 from geometric_adv_tpu_torch.ops.chamfer import (
     _fused_loss_shape_ok,
     chamfer_frozen_payloads,
@@ -517,13 +523,20 @@ class AttackRunner:
     (``batch_size``: the pairs each attack call gets, which the caller
     knows from its pair grid); else "auto". ``calibration_seconds`` is the
     calibration's wall clock, 0 where none ran.
+
+    ``encoder_vjp`` "sparse" differentiates the encoder through
+    ``sparse_encode.make_sparse_encode``, "dense" and "auto" through
+    autograd (``models/sparse_encode.py`` says why "auto" is dense);
+    ``self.encoder_vjp`` is the path taken.
     """
 
     def __init__(self, model, conf, device, chamfer_impl: str = "auto",
-                 batch_size: int | None = None):
+                 batch_size: int | None = None, encoder_vjp: str = "auto"):
         _check_loss_types(conf.loss, conf.loss_adv_type, conf.loss_dist_type)
         if chamfer_impl not in ("auto", "fused", "composed"):
             raise ValueError(f"unknown chamfer_impl {chamfer_impl!r}")
+        if encoder_vjp not in ("auto", "sparse", "dense"):
+            raise ValueError(f"unknown encoder_vjp {encoder_vjp!r}")
         self.chamfer_refresh = int(getattr(conf, "chamfer_refresh", 0) or 0)
         _check_refresh(self.chamfer_refresh, conf.loss)
         self.model = model.eval().requires_grad_(False)
@@ -531,6 +544,18 @@ class AttackRunner:
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.calibration_seconds = 0.0
+        sparse = encoder_vjp == "sparse"
+        self.encoder_vjp = "sparse" if sparse else "dense"
+        model_encode = (sparse_encode.make_sparse_encode(self.model) if sparse
+                        else self.model.encode)
+
+        def encode(x):  # losses and metrics stay float32 for a bf16 victim
+            return model_encode(x).float()
+
+        def decode(z):
+            return self.model.decode(z).float()
+
+        self.encode, self.decode = encode, decode
 
         n = conf.n_input[0]
         if self.chamfer_refresh:
@@ -540,10 +565,12 @@ class AttackRunner:
         elif (_single_process() and _on_cuda_device(self.device)
               and conf.loss == "chamfer" and _fused_loss_shape_ok(n)):
             victim_sig = tuple((tuple(p.shape), str(p.dtype))
-                               for p in self.model.state_dict().values())
+                               for p in self.model.state_dict().values()
+                               ) + (str(getattr(self.model, "dtype", "")),
+                                    self.encoder_vjp)
             t0 = time.perf_counter()
             fused = _calibrate_chamfer_impl(
-                self.model.encode, self.model.decode, conf, self.device,
+                self.encode, self.decode, conf, self.device,
                 victim_sig, calib_batch=batch_size or _auto_dispatch_batch(n),
             )
             self.calibration_seconds = time.perf_counter() - t0
@@ -582,7 +609,7 @@ class AttackRunner:
             t0 = time.time()
             sl = slice(s, min(s + batch_size, n_examples))
             outs.append(attack_batch(
-                self.model.encode, self.model.decode,
+                self.encode, self.decode,
                 dev(source_pc[sl]), dev(target_latent[sl]), dev(target_pc[sl]),
                 dev(target_ae_loss_ref[sl]), dist_weights,
                 num_iterations=conf.num_iterations,

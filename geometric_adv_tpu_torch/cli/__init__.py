@@ -22,6 +22,8 @@ card and on the classifier's and transfer's evaluate stages:
     run_transfer                adversarial inputs through a transfer AE
     evaluate_transfer           transferability statistics
     run_metro                   metro (mesh Hausdorff) eval of AtlasNet
+    import_reference_ckpt       the reference's pretrained models, imported
+    verify_cuda                 the on-card check suite
 
 Run a stage as ``python -m geometric_adv_tpu_torch.cli.<stage> [flags]``.
 """

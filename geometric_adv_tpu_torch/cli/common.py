@@ -5,6 +5,7 @@ wiring, which is ROADMAP Queue 1 item 7).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import os.path as osp
 
@@ -29,22 +30,63 @@ def add_device_flag(parser) -> None:
     )
 
 
+# --matmul_precision: the strings the JAX package passes to
+# jax_default_matmul_precision -> whether the card's float32 matmuls (cuBLAS)
+# and convolutions (cuDNN) may run on TF32 tensor cores (10-bit mantissa
+# inputs, float32 accumulation):
+# - None, "float32", "highest": no TF32, full float32 (the port's default and
+#   the JAX package's strict 1e-6 replay setting);
+# - "tensorfloat32", "high", "bfloat16_3x": TF32 ("bfloat16_3x" is three
+#   bfloat16 passes on a TPU; the card's nearest float32 path is TF32);
+# - "bfloat16", "default": also TF32. A single bfloat16 pass over float32
+#   operands is a TPU mode; cuBLAS has none (``set_float32_matmul_precision``
+#   "medium" turns on TF32 on CUDA as well). A bfloat16 victim is
+#   ``ae_dtype="bfloat16"``, not a matmul precision.
+# On the CPU every string computes full float32, as XLA:CPU ignores the
+# precision too.
+MATMUL_PRECISION_TF32 = {
+    None: False, "float32": False, "highest": False,
+    "tensorfloat32": True, "high": True, "bfloat16_3x": True,
+    "bfloat16": True, "default": True,
+}
+
+
+def matmul_tf32(matmul_precision: str | None, device_type: str) -> bool:
+    """Whether ``--matmul_precision`` puts a ``device_type`` stage's float32
+    matmuls on TF32; ValueError on a string the JAX package does not take."""
+    if matmul_precision not in MATMUL_PRECISION_TF32:
+        raise ValueError(
+            f"--matmul_precision {matmul_precision!r}: expected one of "
+            f"{sorted(k for k in MATMUL_PRECISION_TF32 if k)}"
+        )
+    return device_type == "cuda" and MATMUL_PRECISION_TF32[matmul_precision]
+
+
 def resolve_device(name: str, matmul_precision: str | None = None) -> torch.device:
     """The stage's device. There is no silent move to the CPU: asking for
-    CUDA where it is absent raises. Float32 matmuls and convolutions are
-    pinned to full precision (no TF32), the JAX package's f32 semantics;
-    ``--matmul_precision`` accepts only values that keep that."""
-    if matmul_precision not in (None, "float32", "highest"):
-        raise NotImplementedError(
-            f"--matmul_precision {matmul_precision}: the port computes in "
-            "full float32 only"
-        )
+    CUDA where it is absent raises. Sets the process-wide TF32 flags from
+    this stage's ``--matmul_precision`` (``matmul_tf32``), so that one
+    stage's setting never carries into the next stage of the process."""
     device = torch.device(name)
+    tf32 = matmul_tf32(matmul_precision, device.type)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {name}: CUDA is not available")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
     return device
+
+
+@contextlib.contextmanager
+def restored_tf32_flags():
+    """Puts the TF32 flags back as they were on entry: the stages that take
+    ``--matmul_precision`` run inside it, so that their setting ends with
+    them."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 def eval_dir(project_dir: str, ae_folder: str) -> str:

@@ -7,8 +7,13 @@ _pc_input / _pc_recon / dist_weight). The victim's ``conf.loss`` (chamfer or
 EMD) selects the attack's losses. ``--chamfer_impl fused|composed`` forces
 the chamfer route (else the runner calibrates on the card) and
 ``--chamfer_refresh N`` runs the frozen-assignment mode; the runner's
-routing is written to ``attack_impl.json``. Flags keep the JAX stage's
-names; a value that selects work the port does not have yet raises.
+routing is written to ``attack_impl.json``. ``--encoder_vjp sparse``
+differentiates the victim's encoder through the argmax-sparse VJP
+(``models/sparse_encode.py``); ``auto`` is dense on the CPU and the card.
+``--matmul_precision`` sets the float32 matmuls' precision for this stage
+(``cli/common.py::resolve_device``). Flags keep the JAX stage's names;
+``--use_mesh 1`` on more than one card, which the port does not have yet,
+raises.
 ``--trace_dir`` writes a torch.profiler trace of the first class's attack
 (``utils/profiling.py``)."""
 
@@ -28,6 +33,7 @@ from geometric_adv_tpu_torch.cli.common import (
     ensure_dir,
     resolve_device,
     restore_victim,
+    restored_tf32_flags,
 )
 from geometric_adv_tpu_torch.utils.artifacts import load_data
 from geometric_adv_tpu_torch.utils.profiling import trace
@@ -35,8 +41,6 @@ from geometric_adv_tpu_torch.utils.profiling import trace
 
 def _reject_unported(flags, device) -> None:
     unported = {
-        "--encoder_vjp sparse (ROADMAP Queue 1 item 6)":
-            flags.encoder_vjp == "sparse",
         "--use_mesh 1 on more than one device (ROADMAP Queue 1 item 7)":
             bool(flags.use_mesh) and device.type == "cuda"
             and torch.cuda.device_count() > 1,
@@ -47,6 +51,11 @@ def _reject_unported(flags, device) -> None:
 
 
 def main(argv=None):
+    with restored_tf32_flags():
+        return _run(argv)
+
+
+def _run(argv):
     parser = argparse.ArgumentParser()
     parser.add_argument("--learning_rate", type=float, default=0.01)
     parser.add_argument("--loss_dist_type", type=str, default="chamfer",
@@ -89,8 +98,13 @@ def main(argv=None):
         "nearest-neighbour assignments every N iterations and hold them "
         "frozen in between (PARITY.md #13); 0 = exact every iteration",
     )
-    parser.add_argument("--encoder_vjp", type=str, default="auto",
-                        choices=["auto", "sparse", "dense"])
+    parser.add_argument(
+        "--encoder_vjp", type=str, default="auto",
+        choices=["auto", "sparse", "dense"],
+        help="the victim encoder's input gradient: 'sparse' runs its "
+        "backward on the max-pool argmax rows only (first-argmax ties), "
+        "'dense' is autograd (even tie split); 'auto' is dense",
+    )
     parser.add_argument(
         "--trace_dir", type=str, default=None,
         help="write a torch.profiler trace of the first class's attack "
@@ -154,8 +168,10 @@ def main(argv=None):
     )
     victim = restore_victim(conf, ctx.ae_dir, device, flags.restore_epoch)
     runner = AttackRunner(victim.model, conf, device,
-                          chamfer_impl=flags.chamfer_impl, batch_size=batch_size)
-    print(f"attack routing: {runner.attack_mode}")
+                          chamfer_impl=flags.chamfer_impl, batch_size=batch_size,
+                          encoder_vjp=flags.encoder_vjp)
+    print(f"attack routing: {runner.attack_mode}, encoder VJP "
+          f"{runner.encoder_vjp}")
     with open(osp.join(output_path, "attack_impl.json"), "w") as f:
         json.dump(
             {
@@ -165,7 +181,8 @@ def main(argv=None):
                 "attack_mode": runner.attack_mode,
                 "batch_size": batch_size,
                 "calibration_seconds": runner.calibration_seconds,
-                "encoder_vjp": "dense",
+                "encoder_vjp": runner.encoder_vjp,
+                "matmul_precision": flags.matmul_precision,
                 "device": str(device),
             },
             f,

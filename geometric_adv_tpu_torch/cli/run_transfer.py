@@ -5,8 +5,9 @@ inputs with an independently trained AE and record transfer_metrics =
 [tra T-RE, tra T-NRE, adv T-RE, adv T-NRE].
 
 ``--do_sanity_checks 1`` with the victim as its own transfer AE replays the
-attack's reconstructions and T-RE within 1e-6 (the port computes in full
-float32, the JAX package's ``--matmul_precision float32`` case)."""
+attack's reconstructions and T-RE within 1e-6 in full float32 (the
+default, and ``--matmul_precision float32``), else within 5e-3, the JAX
+package's bars."""
 
 import argparse
 import os.path as osp
@@ -19,17 +20,24 @@ from geometric_adv_tpu_torch.cli.common import (
     AttackContext,
     add_device_flag,
     ensure_dir,
+    matmul_tf32,
     resolve_device,
     restore_victim,
+    restored_tf32_flags,
 )
 from geometric_adv_tpu_torch.ops.chamfer import chamfer_loss_per_pc
 from geometric_adv_tpu_torch.train.config import Configuration
 from geometric_adv_tpu_torch.transfer import get_transfer_ae, load_transfer_arch
 
-REPLAY_TOL = 1e-6
+REPLAY_TOL = 1e-6  # full float32; 5e-3 where the matmuls may take TF32
 
 
 def main(argv=None):
+    with restored_tf32_flags():
+        return _run(argv)
+
+
+def _run(argv):
     parser = argparse.ArgumentParser()
     parser.add_argument(
         "--transfer_ae_type", type=str, default="AtlasNet",
@@ -122,14 +130,16 @@ def main(argv=None):
             adv_recon = np.expand_dims(
                 get_quantity_at_index([adv_recon], norm_min_idx), 0
             )
+            tol = (REPLAY_TOL if not matmul_tf32(flags.matmul_precision,
+                                                 device.type) else 5e-3)
             diff_recon = float(np.abs(tra_recon - adv_recon).max())
-            if not diff_recon < REPLAY_TOL:
+            if not diff_recon < tol:
                 raise RuntimeError(
-                    f"identity transfer recon drift {diff_recon:.2e} >= {REPLAY_TOL:g}")
+                    f"identity transfer recon drift {diff_recon:.2e} >= {tol:g}")
             diff_tre = float(np.abs(tra_tre - adv_metrics[:, :, 4]).max())
-            if not diff_tre < REPLAY_TOL:
+            if not diff_tre < tol:
                 raise RuntimeError(
-                    f"identity transfer T-RE drift {diff_tre:.2e} >= {REPLAY_TOL:g}")
+                    f"identity transfer T-RE drift {diff_tre:.2e} >= {tol:g}")
             print(f"  identity sanity checks passed (recon drift {diff_recon:.3g}, "
                   f"T-RE drift {diff_tre:.3g})")
 

@@ -12,6 +12,7 @@ from geometric_adv_tpu_torch.cli.common import (
     add_device_flag,
     ensure_dir,
     resolve_device,
+    restored_tf32_flags,
 )
 from geometric_adv_tpu_torch.data.augment import sort_axes
 from geometric_adv_tpu_torch.data.datasets import load_dataset
@@ -20,6 +21,11 @@ from geometric_adv_tpu_torch.train.trainer import AETrainer
 
 
 def main(argv=None):
+    with restored_tf32_flags():
+        return _run(argv)
+
+
+def _run(argv):
     parser = argparse.ArgumentParser()
     parser.add_argument("--restore_epoch", type=int, default=None)
     parser.add_argument("--set_type", type=str, default="test_set",

@@ -1,1 +1,2 @@
-"""The victim PointNet autoencoder and the weight bridge from the JAX package."""
+"""The victim PointNet autoencoder, its sparse encoder VJP, the classifier
+and transfer AEs, and the weight bridge from the JAX package."""

@@ -8,6 +8,10 @@ src/ae_templates.py:11-39, src/pointnet_ae.py:29-48):
 - decoder: FC [256, 256, n_points*3], ReLU between, last layer linear, no
   BN, reshaped to [b, n_points, 3] (optionally through tanh).
 
+``dtype`` ("float32" or "bfloat16") is flax's compute dtype
+(``models/layers.py``): float32 parameters, the layers computing in
+``dtype``, so the outputs are of ``dtype``.
+
 The port's own initialisation draws from an explicit ``torch.Generator``
 (``init_weights``). It cannot reproduce flax's init from the same seed; a
 victim that must match the JAX package is bridged from its weights
@@ -22,7 +26,7 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
-from geometric_adv_tpu_torch.models.layers import FCStack, PointMLP
+from geometric_adv_tpu_torch.models.layers import FCStack, PointMLP, compute_dtype
 
 # reference: src/ae_templates.py:22-33
 DEFAULT_ENCODER_FILTERS = (64, 128, 128, 256, 128)
@@ -40,6 +44,7 @@ class PointNetAE(nn.Module):
         decoder_sizes: Sequence[int] | None = None,
         close_with_tanh: bool = False,
         bn_momentum: float = 0.9,
+        dtype=torch.float32,
     ):
         super().__init__()
         filters = (
@@ -54,8 +59,9 @@ class PointNetAE(nn.Module):
         ) + (n_points * 3,)
         self.n_points = n_points
         self.close_with_tanh = close_with_tanh
-        self.encoder = PointMLP(3, filters, bn_momentum)
-        self.decoder = FCStack(filters[-1], sizes)
+        self.dtype = compute_dtype(dtype)
+        self.encoder = PointMLP(3, filters, bn_momentum, self.dtype)
+        self.decoder = FCStack(filters[-1], sizes, self.dtype)
 
     def forward(self, x: torch.Tensor):
         """[b, n, 3] -> (recon [b, n_points, 3], z [b, bneck],
@@ -77,7 +83,7 @@ class PointNetAE(nn.Module):
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded init in flax's defaults: Linear weights lecun-normal
+    """Seeded init in flax's defaults: Dense weights lecun-normal
     (truncated at 2 sigma), biases zero; batch norm scale 1, shift 0,
     running mean 0 and variance 1. Draws on the CPU, in module order."""
     for module in model.modules():

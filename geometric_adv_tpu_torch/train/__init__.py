@@ -1,1 +1,2 @@
-"""Configuration, checkpoints and the inference half of the AE trainer."""
+"""Configuration, checkpoints, the AE trainer and the reference-checkpoint
+importers."""

@@ -4,9 +4,9 @@ The JAX package's ``geometric_adv_tpu.train`` imports jax, flax and optax
 from its ``__init__``, so the port keeps its own copy of this pure
 numpy/json dataclass, in the same ``configuration.json`` schema: either
 package loads what the other saved (pinned by ``tests/test_torch_imports.py``).
-``default_train_params`` is copied too. Not copied yet, as nothing in the
-port calls them: ``from_reference_txt`` (the reference-checkpoint importers,
-ROADMAP Queue 1 item 4), ``copy``, ``exists_and_is_not_none`` and
+``default_train_params`` and ``from_reference_txt`` (the reference-checkpoint
+importer's ``--reference_config``) are copied too. Not copied, as nothing in
+the port calls them: ``copy``, ``exists_and_is_not_none`` and
 ``resolved_n_output``.
 """
 
@@ -136,6 +136,72 @@ class Configuration:
     def load(file_name: str) -> "Configuration":
         with open(file_name + ".json") as f:
             return Configuration.from_dict(json.load(f))
+
+    @classmethod
+    def from_reference_txt(cls, path: str) -> "Configuration":
+        """Import a reference experiment's configuration from its .txt dump.
+
+        The reference pickles its ``Configuration`` with live TF function
+        references (reference: src/autoencoder.py:75-78) — unloadable outside
+        TF1 — but writes a sorted human-readable ``<name>.txt`` next to the
+        pickle (``"%30s: %s" % (key, value)`` per line, callables dumped by
+        ``__name__``). This parses that dump so a reference ``log/`` tree's
+        experiment settings carry over directly (architecture, loss,
+        training/attack hyperparameters); see MIGRATION.md.
+
+        Field translation: the reference encodes the architecture in
+        ``encoder_args['n_filters']`` / ``decoder_args['layer_sizes']``
+        (reference: src/ae_templates.py:22-33) — mapped to
+        ``encoder_filters``/``bneck_size``/``decoder_sizes`` here (the
+        decoder's final ``n*3`` linear layer is implicit in this framework).
+        Graph-building keys with no equivalent (encoder/decoder function
+        names, tflearn arg dicts) are preserved in ``extra``.
+        """
+        import ast
+        import re
+
+        raw: dict[str, Any] = {}
+        with open(path) as f:
+            for line in f:
+                m = re.match(r"\s*([A-Za-z_][A-Za-z0-9_]*): (.*)$", line)
+                if not m:
+                    continue
+                key, val = m.group(1), m.group(2).strip()
+                try:
+                    raw[key] = ast.literal_eval(val)
+                except (ValueError, SyntaxError):
+                    raw[key] = val  # function names, paths, free-form strings
+
+        d: dict[str, Any] = {}
+        enc_args = raw.pop("encoder_args", None)
+        if isinstance(enc_args, dict):
+            n_filters = enc_args.get("n_filters")
+            if n_filters:
+                d["encoder_filters"] = list(n_filters)
+                d["bneck_size"] = int(n_filters[-1])
+            if "b_norm_decay" in enc_args:
+                d["b_norm_decay"] = float(enc_args["b_norm_decay"])
+            d.setdefault("extra", {})["reference_encoder_args"] = enc_args
+        dec_args = raw.pop("decoder_args", None)
+        if isinstance(dec_args, dict):
+            layer_sizes = dec_args.get("layer_sizes")
+            if layer_sizes:
+                # the reference's last FC layer IS the n*3 output layer
+                d["decoder_sizes"] = list(layer_sizes[:-1])
+            d.setdefault("extra", {})["reference_decoder_args"] = dec_args
+        for fn_key in ("encoder", "decoder"):
+            if fn_key in raw:
+                d.setdefault("extra", {})[f"reference_{fn_key}"] = raw.pop(
+                    fn_key
+                )
+
+        d.update(raw)  # shared field names map 1:1 (n_input, loss, batch_size,
+        # learning_rate, training_epochs, z_rotate, gauss_augment, attack keys
+        # like loss_adv_type/dist_weight_list/num_iterations, ...)
+        extra = d.pop("extra", {})
+        conf = cls.from_dict(d)
+        conf.extra.update(extra)
+        return conf
 
 
 def default_train_params() -> dict:

@@ -9,9 +9,13 @@ the learning rate of the optional staircase epoch schedule. An epoch is a
 Python loop over batches with the data resident on the device, in the order
 of an on-device permutation drawn from a generator seeded with the epoch's
 number, so that a resumed run continues exactly. Inference runs in eval mode
-in batches of 250 clouds under ``no_grad``; results come back as numpy.
-Not ported: the mesh (ROADMAP Queue 1 item 7), ``evaluate``,
-``embedding_at_layer`` and ``interpolate`` (item 5).
+in batches of 250 clouds under ``no_grad``; results come back as numpy
+(float32, also for a bfloat16 victim, whose values they hold exactly).
+
+``conf.ae_dtype`` "bfloat16" builds the victim with flax's compute dtype
+(``models/layers.py``); its reconstructions are cast to float32 before the
+loss, so losses and gradients past the victim stay float32. Not ported: the
+mesh (ROADMAP Queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from geometric_adv_tpu_torch.data.augment import apply_augmentations, device_augment
+from geometric_adv_tpu_torch.models.layers import compute_dtype
 from geometric_adv_tpu_torch.models.pointnet_ae import PointNetAE, init_weights
 from geometric_adv_tpu_torch.ops.chamfer import chamfer_loss_per_pc
 from geometric_adv_tpu_torch.ops.emd import emd_loss_per_pc
@@ -30,6 +35,7 @@ from geometric_adv_tpu_torch.train.config import Configuration
 
 
 def reconstruction_loss_per_pc(recon, gt, loss_type: str):
+    recon = recon.float()  # a bfloat16 victim's output; a no-op at float32
     if loss_type == "chamfer":
         return chamfer_loss_per_pc(recon, gt)
     elif loss_type == "emd":
@@ -44,10 +50,6 @@ class AETrainer:
     def __init__(self, conf: Configuration, device, seed: int = 42):
         if conf.loss not in ("chamfer", "emd"):
             raise ValueError(f"unknown loss {conf.loss!r}")
-        if (conf.ae_dtype or "float32") != "float32":
-            raise NotImplementedError(
-                f"ae_dtype {conf.ae_dtype!r}: the port computes in float32 only"
-            )
         self.conf = conf
         self.device = torch.device(device)
         model = PointNetAE(
@@ -56,6 +58,7 @@ class AETrainer:
             encoder_filters=conf.encoder_filters,
             decoder_sizes=conf.decoder_sizes,
             bn_momentum=conf.b_norm_decay,
+            dtype=compute_dtype(conf.ae_dtype),
         )
         init_weights(model, torch.Generator().manual_seed(seed))
         self.model = model.to(self.device).eval()
@@ -101,7 +104,7 @@ class AETrainer:
         gt = x if gt is None else torch.as_tensor(
             np.asarray(gt, np.float32), device=self.device)
         loss, recon = self._train_step(x, gt)
-        return recon.cpu().numpy(), float(loss)
+        return recon.float().cpu().numpy(), float(loss)
 
     def _epoch_generator(self, epoch: int) -> torch.Generator:
         # one stream per epoch, seeded with its number (the JAX trainer keys
@@ -265,8 +268,16 @@ class AETrainer:
                 results["loss"] = reconstruction_loss_per_pc(
                     recon, gb, self.conf.loss)
             for k in outputs:
-                outs[k].append(results[k].cpu().numpy())
+                outs[k].append(results[k].float().cpu().numpy())
         return {k: np.concatenate(v) for k, v in outs.items()}
+
+    def reconstruct(self, x, gt=None, compute_loss=True):
+        """(reconstructions, mean loss or None) of ``x`` in one batch."""
+        out = self._batched_forward(
+            x, gt, batch_size=len(x), outputs=("recon", "loss")
+        )
+        loss = float(out["loss"].mean()) if compute_loss else None
+        return out["recon"], loss
 
     def get_reconstructions(self, pclouds, batch_size=250):
         return self._batched_forward(
@@ -298,10 +309,94 @@ class AETrainer:
             )
             pre = self.model.encoder(xb)
             idxs.append(pre.argmax(dim=-2).to(torch.int32).cpu().numpy())
-            vals.append(pre.amax(dim=-2).cpu().numpy())
+            vals.append(pre.amax(dim=-2).float().cpu().numpy())
         return np.concatenate(idxs), np.concatenate(vals)
 
     def get_loss_per_pc(self, feed_data, orig_data=None, batch_size=250):
         return self._batched_forward(
             feed_data, orig_data, batch_size=batch_size, outputs=("loss",)
         )["loss"]
+
+    def transform(self, x):
+        return self.get_latent_vectors(x, batch_size=len(x))
+
+    @torch.no_grad()
+    def decode(self, z):
+        self.model.eval()
+        z = torch.as_tensor(np.atleast_2d(np.asarray(z, np.float32)),
+                            device=self.device)
+        return self.model.decode(z).float().cpu().numpy()
+
+    def evaluate(self, in_data, conf=None, ret_pre_augmentation=False):
+        """Full-set reconstruction and mean loss over a ``PointCloudDataSet``
+        (reference: src/autoencoder.py:229-261) -> (recon, loss, feed, ids,
+        original[, the denoising feed before augmentation])."""
+        conf = conf or self.conf
+        pre_aug = None
+        if self.conf.is_denoising:
+            original, ids, feed = in_data.full_epoch_data(shuffle=False)
+            if feed is None:
+                feed = original
+            if ret_pre_augmentation:
+                pre_aug = feed.copy()
+            feed = apply_augmentations(feed, conf)
+        else:
+            original, ids, _ = in_data.full_epoch_data(shuffle=False)
+            feed = apply_augmentations(original, conf)
+        # the loss's ground truth: the clean original when denoising, else
+        # the (possibly augmented) feed itself (reference:
+        # src/autoencoder.py:247-251)
+        gt = original if self.conf.is_denoising else feed
+        out = self._batched_forward(
+            feed.astype(np.float32), gt.astype(np.float32),
+            batch_size=conf.batch_size, outputs=("recon", "loss"),
+        )
+        data_loss = float(out["loss"].mean())
+        print("evaluation loss=", "{:.9f}".format(data_loss))
+        if pre_aug is not None:
+            return out["recon"], data_loss, feed, ids, original, pre_aug
+        return out["recon"], data_loss, feed, ids, original
+
+    @torch.no_grad()
+    def embedding_at_layer(self, pclouds, layer_path=None, batch_size=50):
+        """Activations at an intermediate layer (reference:
+        src/autoencoder.py:263-294). ``layer_path`` is the JAX package's
+        module path, e.g. ``("decoder", "fc_0", "__call__")``: the output of
+        that module's forward, taken by a forward hook during a full eval
+        forward; None gives the latent codes."""
+        if layer_path is None:
+            return self.get_latent_vectors(pclouds, batch_size=batch_size)
+        *names, method = layer_path
+        if method != "__call__":
+            raise ValueError(f"layer_path {layer_path!r}: only a module's "
+                             "__call__ output can be taken")
+        module = self.model.get_submodule(".".join(names))
+        captured = []
+        hook = module.register_forward_hook(
+            lambda mod, args, out: captured.append(
+                out[0] if isinstance(out, tuple) else out))
+        self.model.eval()
+        outs = []
+        try:
+            pcs = np.asarray(pclouds, np.float32)
+            for s in range(0, len(pcs), batch_size):
+                captured.clear()
+                self.model(torch.as_tensor(pcs[s:s + batch_size],
+                                           device=self.device))
+                outs.append(captured[0].float().cpu().numpy())
+        finally:
+            hook.remove()
+        return np.concatenate(outs)
+
+    def interpolate(self, x, y, steps):
+        """reference: src/autoencoder.py:178-189."""
+        z = self.transform(np.stack([x, y]))
+        alphas = np.linspace(0, 1, steps + 2)[:, None]
+        all_z = alphas * z[1] + (1.0 - alphas) * z[0]
+        return self.decode(all_z.astype(np.float32))
+
+
+def build_trainer_from_checkpoint(conf: Configuration, train_dir: str,
+                                  epoch: int | None = None,
+                                  device="cuda") -> AETrainer:
+    return AETrainer(conf, device).restore(train_dir, epoch)

@@ -97,7 +97,7 @@ def hausdorff_sampled(s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
 
 
 def metro_distance(vertices1, faces1, vertices2, faces2, n_samples: int = 30_000,
-                   seed: int = 0, device="cpu") -> float:
+                   seed: int = 0, device="cuda") -> float:
     """Sampled symmetric Hausdorff distance between two triangle meshes, the
     port of ``metro.metro(path1, path2)`` (reference:
     transfer/atlasnet/training/metro.py:14-32); both sides' samples from one

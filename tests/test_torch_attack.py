@@ -158,18 +158,68 @@ def test_init_pert_is_seeded_truncated_normal():
     assert a.std().item() == pytest.approx(0.8796e-7, rel=0.02)
 
 
+@pytest.fixture(scope="module")
+def tiny_project(tmp_path_factory):
+    """A chamfer victim trained one epoch by the port's train_ae, its eval
+    dump and pair indices."""
+    import os.path as osp
+
+    from geometric_adv_tpu_torch.cli import prepare_indices_for_attack, train_ae, tst_ae
+    from geometric_adv_tpu_torch.data.synthetic import make_shapenet_like_dir
+
+    d = str(tmp_path_factory.mktemp("attack_cli"))
+    ae = "log/ae"
+    make_shapenet_like_dir(osp.join(d, "data/tiny"), ["sphere", "cube"], 30, 64)
+    c = ["--project_dir", d, "--device", "cpu"]
+    train_ae.main(c + ["--data_folder", "data/tiny", "--n_points", "64",
+                       "--bneck_size", "16", "--batch_size", "10",
+                       "--training_epochs", "1", "--train_folder", ae])
+    tst_ae.main(c + ["--data_folder", "data/tiny", "--train_folder", ae])
+    prepare_indices_for_attack.main(c + [
+        "--ae_folder", ae, "--get_rand_idx", "1", "--get_latent_nn_idx", "1",
+        "--get_chamfer_nn_idx", "1", "--num_instance_per_class", "2"])
+    return d, ae
+
+
 @pytest.mark.parametrize("flags", [
     ["--encoder_vjp", "sparse"],
     ["--matmul_precision", "bfloat16"],
 ])
-def test_run_attack_rejects_unported_flag_values(flags):
-    """A flag value that selects unported work raises before any stage
-    work; nothing is ignored silently."""
-    from geometric_adv_tpu_torch.cli import run_attack
+def test_run_attack_rejects_unported_flag_values(flags, tiny_project):
+    """The two values the port once rejected now run: ``--encoder_vjp
+    sparse`` takes the sparse backward (its counter moves) and
+    ``--matmul_precision bfloat16`` computes full float32 on the CPU, as
+    XLA:CPU does; attack_impl.json records both, and the TF32 flags are as
+    they were after the stage. An unknown precision raises."""
+    import json
+    import os.path as osp
 
-    with pytest.raises(NotImplementedError):
+    from geometric_adv_tpu_torch.cli import run_attack
+    from geometric_adv_tpu_torch.models import sparse_encode
+
+    d, ae = tiny_project
+    calls = sparse_encode.BACKWARD_CALLS
+    flags_before = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
+    out = "attack_" + flags[1]
+    run_attack.main(["--project_dir", d, "--device", "cpu", "--ae_folder", ae,
+                     "--attack_pc_idx", f"{ae}/eval/sel_idx_rand_2_test_set_13l.npy",
+                     "--num_pc_for_attack", "2", "--num_pc_for_target", "1",
+                     "--num_iterations", "6", "--num_iterations_thresh", "3",
+                     "--output_folder_name", out, *flags])
+    res = osp.join(d, ae, "eval", out)
+    impl = json.load(open(osp.join(res, "attack_impl.json")))
+    sparse = flags[1] == "sparse"
+    assert impl["encoder_vjp"] == ("sparse" if sparse else "dense")
+    assert (sparse_encode.BACKWARD_CALLS > calls) == sparse
+    assert impl["matmul_precision"] == (None if sparse else "bfloat16")
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == flags_before
+    metrics = np.load(osp.join(res, "sphere", "adversarial_metrics.npy"))
+    assert metrics.shape == (1, 2, 5) and np.isfinite(metrics).all()
+    with pytest.raises(ValueError, match="matmul_precision"):
         run_attack.main(["--attack_pc_idx", "unused.npy", "--device", "cpu",
-                         *flags])
+                         "--matmul_precision", "fp8"])
 
 
 def test_binary_search_attack_matches_jax(monkeypatch):

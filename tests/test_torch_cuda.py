@@ -663,3 +663,80 @@ def test_metro_hausdorff_on_the_card_matches_the_host(cuda):
     card = metro.hausdorff_sampled(s1, s2)
     assert cu.nn_distance_values_cuda.launches == before + 1
     assert float(card) == float(metro.hausdorff_sampled(s1.cpu(), s2.cpu()))
+
+
+def _victim(cuda, n, bneck, enc, dec, dtype="float32", seed=0):
+    from geometric_adv_tpu_torch.models.pointnet_ae import PointNetAE, init_weights
+
+    model = PointNetAE(n_points=n, bneck_size=bneck, encoder_filters=enc,
+                       decoder_sizes=dec, dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    with torch.no_grad():  # BN statistics away from their init
+        for buf in model.buffers():
+            buf.add_(0.3 * buf.abs() + 0.01)
+    return model.to(cuda).eval().requires_grad_(False)
+
+
+@pytest.mark.parametrize("scatter_impl", ["onehot", "scatter"])
+def test_sparse_encode_on_card(cuda, scatter_impl, monkeypatch):
+    """The sparse encoder VJP on the card: z bit-equal to the dense encode,
+    the gradient against dense autograd (elementwise rtol 2e-5 / atol 1e-7
+    at tests/test_sparse_encode.py's victim, 2e-5 of the largest entry at
+    the full width), the "onehot" return bit-equal on a second run."""
+    from geometric_adv_tpu_torch.cli.verify_cuda import SPARSE_SCALED, sparse_vs_dense
+    from geometric_adv_tpu_torch.models import sparse_encode
+
+    monkeypatch.setattr(sparse_encode, "SCATTER_IMPL", scatter_impl)
+    rng = np.random.RandomState(1)
+    small = _victim(cuda, 64, 16, [16, 32, 16], [16, 16])
+    res = sparse_vs_dense(small, torch.from_numpy(rng.randn(5, 64, 3).astype(np.float32)).to(cuda))
+    assert res["z_equal"] and res["elementwise"] and res["backward_calls"] == 1, res
+    full = _victim(cuda, 2048, 128, None, None)
+    x = torch.from_numpy(rng.rand(4, 2048, 3).astype(np.float32) - 0.5).to(cuda)
+    res = sparse_vs_dense(full, x)
+    assert res["z_equal"] and res["max_rel"] <= SPARSE_SCALED, res
+    grads = []
+    for _ in range(2):
+        xr = x.clone().requires_grad_(True)
+        sparse_encode.make_sparse_encode(full)(xr).sum().backward()
+        grads.append(xr.grad)
+    if scatter_impl == "onehot":
+        assert torch.equal(grads[0], grads[1])
+    else:  # index_add_ adds in the atomics' order
+        torch.testing.assert_close(grads[0], grads[1], rtol=2e-5, atol=1e-7)
+
+
+def test_argmax_takes_the_first_tied_maximum_on_card(cuda):
+    t = torch.zeros(3, 2048, 128, device=cuda)
+    t[:, [1999, 9, 700]] = 2.0
+    assert (t.argmax(dim=-2) == 9).all()
+    assert (t.amax(dim=-2) == 2.0).all()
+
+
+def test_bf16_victim_on_card_matches_host(cuda):
+    """The bfloat16 victim on the card against the same victim on the host:
+    within one bfloat16 step (2^-8) of the largest entry, as
+    tests/test_torch_precision.py holds it against JAX's."""
+    model = _victim(cuda, 256, 128, None, None, dtype="bfloat16")
+    host = _victim(torch.device("cpu"), 256, 128, None, None, dtype="bfloat16")
+    x = np.random.RandomState(2).randn(4, 256, 3).astype(np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x).to(cuda))
+        want = host(torch.from_numpy(x))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        g, w = g.float().cpu().numpy(), w.float().numpy()
+        assert np.abs(g - w).max() <= 2.0 ** -8 * np.abs(w).max()
+
+
+def test_matmul_precision_sets_tf32_on_card(cuda):
+    from geometric_adv_tpu_torch.cli import common
+
+    try:
+        for precision, tf32 in (("tensorfloat32", True), ("bfloat16", True),
+                                ("highest", False), (None, False)):
+            common.resolve_device("cuda", precision)
+            assert torch.backends.cuda.matmul.allow_tf32 is tf32
+            assert torch.backends.cudnn.allow_tf32 is tf32
+    finally:
+        common.resolve_device("cuda")

@@ -2,15 +2,17 @@
 their originals in the JAX package.
 
 1. In a fresh interpreter where ``jax``, ``flax``, ``optax``, ``orbax``, the
-   JAX package itself and matplotlib, pandas and seaborn (absent on the
-   card's machine) cannot be imported, every module of
+   JAX package itself and matplotlib, pandas, seaborn and tensorflow (absent
+   on the card's machine) cannot be imported, every module of
    ``geometric_adv_tpu_torch`` imports and the tiny slice runs through the
    stage CLIs on ``--device cpu``, from ``make_synthetic_data`` and
-   ``train_ae --loss emd`` through the attack and both defenses, then
-   ``train_classifier``, ``run_classifier``, ``train_transfer`` (AtlasNet
-   and FoldingNet) and ``run_metro`` — as on a machine that has no JAX; so
-   do a frozen-assignment attack and the pruned chamfer of
-   ``ops/chamfer_hier.py``, and a plot call raises ImportError.
+   ``train_ae --loss emd`` through the attack (also with ``--encoder_vjp
+   sparse``) and both defenses, then ``train_classifier``,
+   ``run_classifier``, ``train_transfer`` (AtlasNet and FoldingNet),
+   ``run_metro`` and ``import_reference_ckpt --model atlasnet`` with
+   ``tst_transfer`` on what it wrote — as on a machine that has no JAX and
+   no tensorflow; so do a frozen-assignment attack and the pruned chamfer
+   of ``ops/chamfer_hier.py``, and a plot call raises ImportError.
 2. The copies (``attack/pipeline.py``, ``train/config.py`` and the data /
    augmentation / artifact / statistics helpers) give the originals' results
    on the same inputs.
@@ -29,7 +31,7 @@ REPO = osp.dirname(osp.dirname(osp.abspath(__file__)))
 STANDALONE = r"""
 import importlib, pkgutil, sys
 BLOCKED = ("jax", "flax", "optax", "orbax", "geometric_adv_tpu", "matplotlib",
-           "pandas", "seaborn")
+           "pandas", "seaborn", "tensorflow")
 for name in BLOCKED:
     sys.modules[name] = None  # any import of them now raises ImportError
 sys.path.insert(0, sys.argv[1])
@@ -49,7 +51,9 @@ for name in ("cli.run_attack", "cli.train_ae", "ops.emd", "ops.cuda.emd",
              "transfer.metro", "cli.train_classifier", "cli.tst_classifier",
              "cli.run_classifier", "cli.evaluate_classifier", "cli.train_transfer",
              "cli.tst_transfer", "cli.run_transfer", "cli.evaluate_transfer",
-             "cli.run_metro"):
+             "cli.run_metro", "cli.import_reference_ckpt", "cli.verify_cuda",
+             "train.import_tf", "train.import_torch", "models.sparse_encode",
+             "native"):
     assert "geometric_adv_tpu_torch." + name in names, names
 
 import numpy as np
@@ -79,6 +83,12 @@ evaluate_attack.main(["--project_dir", d, "--ae_folder", ae,
                       "--attack_pc_idx", sel])
 m = np.load(d + "/" + ae + "/eval/attack_res/sphere/adversarial_metrics.npy")
 assert m.shape == (1, 8, 5) and np.isfinite(m).all(), m
+run_attack.main(c + ["--ae_folder", ae, "--attack_pc_idx", sel,
+                     "--num_pc_for_attack", "2", "--num_pc_for_target", "2",
+                     "--num_iterations", "5", "--num_iterations_thresh", "3",
+                     "--encoder_vjp", "sparse", "--output_folder_name", "attack_sparse"])
+m = np.load(d + "/" + ae + "/eval/attack_sparse/sphere/adversarial_metrics.npy")
+assert m.shape == (1, 8, 5) and np.isfinite(m).all(), m
 a = ["--ae_folder", ae, "--attack_pc_idx", sel]
 run_defense_critical.main(c + a + ["--do_sanity_checks", "1"])
 get_knn_dists_per_point.main(c + a)
@@ -107,6 +117,36 @@ for kind, extra in (("atlasnet", ["--number_points", "36", "--template_type", "S
 rows = run_metro.main(c + ["--transfer_ae_folder", "log/atlasnet_for_transfer",
                            "--ae_folder", ae, "--n_samples", "200"])
 assert len(rows) == 6 and all(np.isfinite(r[1]) for r in rows), rows
+# a reference-layout AtlasNet network.pth (one SQUARE primitive) through
+# the importer, restored by tst_transfer from the arch.json it wrote
+from geometric_adv_tpu_torch.cli import import_reference_ckpt, tst_transfer
+g = torch.Generator().manual_seed(0)
+sd = {}
+def dense(base, i, o, conv=True):
+    sd[f"module.{base}.weight"] = torch.randn((o, i, 1) if conv else (o, i), generator=g) / i ** 0.5
+    sd[f"module.{base}.bias"] = torch.zeros(o)
+def bn(base, ch):
+    for k, v in (("weight", torch.ones(ch)), ("bias", torch.zeros(ch)),
+                 ("running_mean", torch.zeros(ch)), ("running_var", torch.ones(ch))):
+        sd[f"module.{base}.{k}"] = v
+for i, (fan_in, width) in enumerate(((3, 64), (64, 128), (128, 1024)), 1):
+    dense(f"encoder.conv{i}", fan_in, width)
+    bn(f"encoder.bn{i}", width)
+for i in (1, 2):
+    dense(f"encoder.lin{i}", 1024, 1024, conv=False)
+    bn(f"encoder.bn{i + 3}", 1024)
+p = "decoder.decoder.0"
+dense(p + ".conv1", 2, 1024); bn(p + ".bn1", 1024)
+dense(p + ".conv2", 1024, 512); bn(p + ".bn2", 512)
+for i in (0, 1):
+    dense(f"{p}.conv_list.{i}", 512, 512); bn(f"{p}.bn_list.{i}", 512)
+dense(p + ".last_conv", 512, 3)
+torch.save(sd, d + "/network.pth")
+import_reference_ckpt.main(["--project_dir", d, "--model", "atlasnet", "--reference_ckpt",
+                            d + "/network.pth", "--train_folder", "log/atlas_ref"])
+ev = tst_transfer.main(c + ["--ae_folder", ae, "--ae_type", "atlasnet",
+                            "--train_folder", "log/atlas_ref"])
+assert np.isfinite(ev["loss"]), ev
 from geometric_adv_tpu_torch.utils import plots
 try:
     plots.plot_attack_triplet(*np.zeros((3, 4, 3)), d + "/p.png")
@@ -155,8 +195,9 @@ def test_cli_device_cuda_raises_without_cuda(tmp_path):
         pytest.skip("this host has CUDA")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
-    with pytest.raises(NotImplementedError):
-        resolve_device("cpu", matmul_precision="bfloat16")
+    # the once-rejected precision now runs: full float32 on the CPU
+    assert resolve_device("cpu", matmul_precision="bfloat16").type == "cpu"
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 NEW_CLIS = {  # the classifier and transfer CLIs, with their required flags

@@ -91,9 +91,11 @@ def test_sampler_on_surface_and_area_weighted():
 def test_metro_distance_recovers_a_known_offset():
     verts, faces = unit_square_mesh()
     shifted = verts + np.asarray([0.0, 0.0, 0.25], np.float32)
-    d = metro.metro_distance(verts, faces, shifted, faces, n_samples=4000)
+    d = metro.metro_distance(verts, faces, shifted, faces, n_samples=4000,
+                             device="cpu")
     np.testing.assert_allclose(d, 0.25, atol=0.02)  # parallel planes
-    assert metro.metro_distance(verts, faces, verts, faces, n_samples=4000) < 0.05
+    assert metro.metro_distance(verts, faces, verts, faces, n_samples=4000,
+                                device="cpu") < 0.05
     a, b = torch.zeros(4, 3), torch.zeros(4, 3)
     b[0] = torch.tensor([3.0, 4.0, 0.0])
     assert float(metro.hausdorff_sampled(a, b)) == 5.0
