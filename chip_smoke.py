@@ -98,6 +98,14 @@ the script exits non-zero:
      never;
    - the native PLY loader over the written tree beside the python parser
      (the chamfer leg's datasets must all have been parsed natively);
+   - mesh: two ranks of this script (``--mesh-rank``) on the one card,
+     started with the GAT_ variables (gloo; each prints its device and
+     backend): run_attack ``--chamfer_impl composed`` (100/80 iterations,
+     48 pairs a call, 24 a rank) against one rank at calls of 24, then the
+     chamfer matrix over the dataset's 240 clouds and get_reconstructions /
+     get_pre_symmetry_argmax under the mesh; K1 and K3 must launch on both
+     ranks in the attack and K2 in the matrix; a rank that exits non-zero
+     or outlasts its timeout fails the run;
    - sparse and dense encoder VJP: run_attack ``--encoder_vjp sparse`` and
      ``dense`` (``--chamfer_impl composed``, 100/80 iterations, 24 pairs a
      call), each a leg (K1 and K3 must launch, the sparse backward exactly
@@ -150,6 +158,13 @@ the script exits non-zero:
    imported victim's reconstructions within rtol 1e-5 / atol 1e-5 of the
    host's, the imported transfer AEs' test losses finite, the TF branch's
    ImportError; every verify_cuda check passed;
+   the eval forward's batch invariance on the chamfer and EMD victims
+   (get_reconstructions and get_loss_per_pc on 12 clouds at once against
+   rows of 4, and three clouds in batches of 1-40, at 0; the plain
+   forward's drift printed); the mesh leg's attack artifacts against the
+   one-rank run at rtol 1e-5 / atol 1e-6, its matrix against one process
+   at rtol 1e-5 / atol 1e-7, its reconstructions at rtol 1e-5 / atol 1e-6
+   and argmax equal, every rank holding the same values;
    the classifier's test-set labels recomputed on the host equal the
    card's except at near-ties (each printed with its margin), its label and
    eval_stats artifacts complete; each transfer AE's artifacts of the JAX
@@ -170,7 +185,9 @@ the script exits non-zero:
    python parser's seconds, the sparse and dense attacks' pair-iters/s (24
    pairs a call, 250 in one call, with profiles and peak memory), the
    float32, TF32 and bfloat16 victims' tst_ae seconds and attack rates with
-   their deviation from float32, and the peak device memory of each leg.
+   their deviation from float32, the blocked and plain eval forward's time
+   over 240 clouds, the 2-rank against the 1-rank attack's wall, and the
+   peak device memory of each leg.
 
 Its last lines are a JSON record of the kernels (each with its shape, its
 time and how it was taken (``ms_by``), the plain version's, its bound and
@@ -183,6 +200,7 @@ reports it, and
 from __future__ import annotations
 
 import json
+import os
 import os.path as osp
 import shutil
 import subprocess
@@ -1789,6 +1807,246 @@ SPARSE_RTOL, SPARSE_ATOL = 2e-4, 1e-6  # tests/test_sparse_encode.py:161-164
 RECON_TOL = dict(rtol=1e-5, atol=1e-5)  # tests/test_torch_model_ae.py:18
 
 
+# --- the eval forward's batch invariance, and the mesh leg -------------------
+MESH_RANKS = 2  # the mesh leg's ranks, both on the one card
+MESH_ITERS = (100, 80)
+MESH_BATCH = 48  # a class's pair grid (4 sources x 3 classes x 4 targets) in one
+#                  call of the 2-rank attack: 24 pairs a rank
+MESH_TIMEOUT = 300  # seconds a process of the mesh leg may take
+ATTACK_BAR = dict(rtol=1e-5, atol=1e-6)  # tests/test_distributed.py:120-121
+MATRIX_BAR = dict(rtol=1e-5, atol=1e-7)  # tests/test_distributed.py:271-272
+FORWARD_BAR = dict(rtol=1e-5, atol=1e-6)  # tests/test_distributed.py:285-288
+
+
+def dataset_clouds(project, data="data/synthetic"):
+    """The synthetic dataset's 240 clouds, class by class."""
+    from geometric_adv_tpu_torch.data.datasets import load_point_clouds_under_folder
+
+    return np.concatenate([load_point_clouds_under_folder(osp.join(project, data, c))
+                           for c in CLASSES]).astype(np.float32)
+
+
+def check_batch_invariance(victim, clouds, label):
+    """A cloud's eval-forward results must not depend on the batch it sits
+    in: ``get_reconstructions`` and ``get_loss_per_pc`` on 12 clouds at
+    once against rows of 4, and three clouds at offsets 0 and 5 in batches
+    of 1-40 against the same clouds alone, all at 0. The victim's plain
+    forward (one call, no blocks) is swept the same way and printed beside
+    it, with the time of each over ``clouds``."""
+    x = clouds[:12]
+
+    def in_fours(fn):
+        return np.concatenate([fn(x[i:i + 4]) for i in range(0, 12, 4)])
+
+    drift = {
+        "get_reconstructions": float(np.abs(
+            victim.get_reconstructions(x) - in_fours(victim.get_reconstructions)).max()),
+        "get_loss_per_pc": float(np.abs(
+            victim.get_loss_per_pc(x) - in_fours(victim.get_loss_per_pc)).max()),
+    }
+
+    def plain(a):
+        with torch.no_grad():
+            return victim.model(torch.as_tensor(a, device="cuda"))[0]
+
+    probe = clouds[:3]
+    alone = (victim.get_reconstructions(probe), victim.get_loss_per_pc(probe), plain(probe))
+    sweep = plain_sweep = 0.0
+    for b in range(1, 41):
+        for off in (0, 5):
+            batch = np.concatenate([clouds[20:20 + off], probe, clouds[40:40 + b]])
+            rows = slice(off, off + 3)
+            sweep = max(sweep,
+                        float(np.abs(victim.get_reconstructions(batch)[rows] - alone[0]).max()),
+                        float(np.abs(victim.get_loss_per_pc(batch)[rows] - alone[1]).max()))
+            plain_sweep = max(plain_sweep,
+                              (plain(batch)[rows] - alone[2]).abs().max().item())
+    blocked_ms = sync_timed(lambda: victim.get_reconstructions(clouds), 5)
+    plain_ms = sync_timed(lambda: plain(clouds).cpu(), 5)
+    print(f"eval forward batch invariance ({label}): 12 clouds at once vs rows of 4 "
+          f"{drift}; three clouds in batches of 1-40 at offsets 0/5 vs alone {sweep:.3e}; "
+          f"the plain forward (one call, no blocks) {plain_sweep:.3e}; get_reconstructions "
+          f"of {len(clouds)} clouds {blocked_ms:.2f} ms, the plain forward {plain_ms:.2f} ms")
+    if max(drift.values()) or sweep:
+        fail(f"the {label} victim's eval forward depends on the batch: {drift}, {sweep}")
+    return drift, sweep, plain_sweep
+
+
+def mesh_rank(argv) -> int:
+    """One process of the mesh leg (``chip_smoke.py --mesh-rank OUT
+    run_attack flags...``), started by ``mesh_leg`` with the GAT_ variables
+    or none: runs run_attack, and where the flags say so the chamfer matrix
+    and the batched forward under the mesh, each between barriers with the
+    launch counts zeroed, and writes what it measured to OUT/rank<r>.json."""
+    from geometric_adv_tpu_torch.cli import common, run_attack
+    from geometric_adv_tpu_torch.ops.cuda import build
+    from geometric_adv_tpu_torch.ops.cuda import chamfer as cu
+    from geometric_adv_tpu_torch.ops.pairwise import chamfer_distance_matrix
+    from geometric_adv_tpu_torch.parallel import barrier, get_mesh
+    from geometric_adv_tpu_torch.train.config import Configuration
+
+    out, stages, flags = argv[0], argv[1], argv[2:]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load_library()
+    mesh = get_mesh()
+    dist = torch.distributed
+    report = {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
+              "current_device": torch.cuda.current_device(),
+              "backend": dist.get_backend() if dist.is_initialized() else None}
+
+    def timed(name, fn):
+        cu.reset_launch_counts()
+        barrier()
+        t0 = time.time()
+        result = fn()
+        torch.cuda.synchronize()
+        report[name + "_s"] = time.time() - t0
+        report[name + "_launches"] = cu.launch_counts()
+        barrier()
+        return result
+
+    timed("attack", lambda: run_attack.main(flags))
+    if stages == "all":
+        project, ae = flags[flags.index("--project_dir") + 1], flags[flags.index("--ae_folder") + 1]
+        clouds = np.load(osp.join(out, "clouds.npy"))
+        mat = timed("matrix", lambda: chamfer_distance_matrix(clouds, "cuda", mesh=mesh))
+        victim = common.restore_victim(
+            Configuration.load(osp.join(project, ae, "configuration")),
+            osp.join(project, ae), "cuda", mesh=mesh)
+        recon = timed("forward", lambda: victim.get_reconstructions(clouds))
+        amax, vmax = victim.get_pre_symmetry_argmax(clouds)
+        np.savez(osp.join(out, f"rank{mesh.rank}.npz"), matrix=mat, recon=recon,
+                 amax=amax, vmax=vmax)
+    with open(osp.join(out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(report, f)
+    return 0
+
+
+def start_ranks(out, ranks, stages, flags):
+    """``ranks`` processes of ``mesh_rank`` (the GAT_ variables where more
+    than one); -> their reports and the wall clock of the whole run. A rank
+    that exits non-zero or outlasts MESH_TIMEOUT fails the run."""
+    import socket
+
+    os.makedirs(out, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    t0 = time.time()
+    for rank in range(ranks):
+        env = dict(os.environ)
+        if ranks > 1:
+            env.update(GAT_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       GAT_NUM_PROCESSES=str(ranks), GAT_PROCESS_ID=str(rank))
+        log = open(osp.join(out, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, osp.abspath(__file__), "--mesh-rank", out, stages, *flags],
+            env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    try:
+        for rank, (proc, log) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(1.0, t0 + MESH_TIMEOUT - time.time()))
+            except subprocess.TimeoutExpired:
+                fail(f"mesh rank {rank} of {ranks} outlasted {MESH_TIMEOUT} s")
+            if rc:
+                tail = open(osp.join(out, f"rank{rank}.log")).read()[-3000:]
+                fail(f"mesh rank {rank} of {ranks} exited {rc}:\n{tail}")
+    finally:
+        for proc, log in procs:
+            proc.kill()
+            proc.wait()
+            log.close()
+    wall = time.time() - t0
+    return [json.load(open(osp.join(out, f"rank{r}.json"))) for r in range(ranks)], wall
+
+
+def mesh_leg(project, ae, victim, smi):
+    """Two ranks on the one card, started with the GAT_ variables: the
+    composed chamfer attack (100/80 iterations, 48 pairs a call, so 24 a
+    rank) against one process at calls of 24, the chamfer matrix over the
+    dataset's 240 clouds and ``get_reconstructions`` /
+    ``get_pre_symmetry_argmax`` over them under the mesh against one
+    process; K1 and K3 must launch on both ranks in the attack, K2 in the
+    matrix. Returns the leg's launches and its numbers."""
+    from geometric_adv_tpu_torch.ops.pairwise import chamfer_distance_matrix
+
+    out = osp.join(project, "mesh")
+    os.makedirs(out, exist_ok=True)
+    clouds = dataset_clouds(project)
+    np.save(osp.join(out, "clouds.npy"), clouds)
+
+    def flags(batch, folder):
+        return ["--project_dir", project, "--device", "cuda", "--ae_folder", ae,
+                "--attack_pc_idx", f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy",
+                "--num_pc_for_attack", "4", "--num_pc_for_target", "4",
+                "--num_iterations", str(MESH_ITERS[0]),
+                "--num_iterations_thresh", str(MESH_ITERS[1]),
+                "--chamfer_impl", "composed", "--batch_size", str(batch),
+                "--output_folder_name", folder]
+
+    one, one_wall = start_ranks(osp.join(out, "one"), 1, "attack",
+                                flags(MESH_BATCH // MESH_RANKS, "attack_res_mesh1"))
+    two, two_wall = start_ranks(out, MESH_RANKS, "all", flags(MESH_BATCH, "attack_res_mesh2"))
+    for r in two:
+        print(f"mesh rank {r['rank']} of {r['size']}: device {r['device']} (current "
+              f"{r['current_device']}), backend {r['backend']}; attack launches "
+              f"{r['attack_launches']}, matrix launches {r['matrix_launches']}")
+        if (r["size"], r["backend"]) != (MESH_RANKS, "gloo"):
+            fail(f"mesh rank {r['rank']}: size {r['size']}, backend {r['backend']}")
+        for stage, kernels in (("attack", ("nn_distance_cuda", "chamfer_grad1_cuda")),
+                               ("matrix", ("nn_distance_values_cuda",))):
+            for k in kernels:
+                if r[stage + "_launches"][k] <= 0:
+                    fail(f"{k} was not launched on mesh rank {r['rank']} in the {stage}")
+    ev = osp.join(project, ae, "eval")
+    attack_diff = 0.0
+    for c in CLASSES:
+        for name in ("adversarial_metrics", "adversarial_pc_input", "adversarial_pc_recon"):
+            want = np.load(osp.join(ev, "attack_res_mesh1", c, name + ".npy"))
+            got = np.load(osp.join(ev, "attack_res_mesh2", c, name + ".npy"))
+            if got.shape != want.shape or got.shape[1] != MESH_BATCH:
+                fail(f"the mesh attack's {c}/{name}: {got.shape} vs {want.shape}")
+            np.testing.assert_allclose(got, want, **ATTACK_BAR, err_msg=f"{c}/{name}")
+            attack_diff = max(attack_diff, float(np.abs(got - want).max()))
+    impl = json.load(open(osp.join(ev, "attack_res_mesh2", "attack_impl.json")))
+    if impl["processes"] != MESH_RANKS or impl["batch_size"] != MESH_BATCH:
+        fail(f"the mesh attack recorded {impl}")
+    single = chamfer_distance_matrix(clouds, "cuda")
+    recon = victim.get_reconstructions(clouds)
+    amax, vmax = victim.get_pre_symmetry_argmax(clouds)
+    ranks = [dict(np.load(osp.join(out, f"rank{r}.npz"))) for r in range(MESH_RANKS)]
+    for r in ranks[1:]:
+        for k, v in ranks[0].items():
+            if not np.array_equal(r[k], v):
+                fail(f"the mesh ranks disagree on {k}")
+    got = ranks[0]
+    np.testing.assert_allclose(got["matrix"], single, **MATRIX_BAR)
+    np.testing.assert_allclose(got["recon"], recon, **FORWARD_BAR)
+    np.testing.assert_allclose(got["vmax"], vmax, **FORWARD_BAR)
+    np.testing.assert_array_equal(got["amax"], amax)
+    diffs = {"attack": attack_diff,
+             "matrix": float(np.abs(got["matrix"] - single).max()),
+             "reconstructions": float(np.abs(got["recon"] - recon).max()),
+             "argmax mismatches": int((got["amax"] != amax).sum())}
+    one_s = one[0]["attack_s"]
+    two_s = max(r["attack_s"] for r in two)
+    pair_iters = len(CLASSES) * MESH_BATCH * MESH_ITERS[0]
+    print(f"mesh leg ({smi}): largest differences against one process {diffs}; "
+          f"run_attack of {pair_iters // MESH_ITERS[0]} pairs x {MESH_ITERS[0]} iterations: "
+          f"2 ranks on one card {two_s:.2f} s ({pair_iters / two_s:.1f} pair-iters/s), "
+          f"1 rank {one_s:.2f} s ({pair_iters / one_s:.1f} pair-iters/s), "
+          f"{one_s / two_s:.3f}x; whole runs with start-up {two_wall:.2f} s and "
+          f"{one_wall:.2f} s; matrix under the mesh {two[0]['matrix_s']:.3f} s")
+    launches = {}
+    for r in one + two:
+        for stage in ("attack", "matrix", "forward"):
+            for k, v in r.get(stage + "_launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+    return launches, {"mesh attack s, 2 ranks / 1 rank": [two_s, one_s],
+                      "mesh largest differences": diffs}
+
+
 def native_loader_check(project, data):
     """The native PLY batch loader against the python parser on the written
     tree: the same clouds, the native path counted, both timed."""
@@ -1861,8 +2119,9 @@ def sparse_legs(project, ae, victim, counters, n_pairs):
         if ran != want:
             fail(f"the {vjp} attack ran the sparse backward {ran} times, not {want}")
         impl = json.load(open(osp.join(project, ae, "eval", out, "attack_impl.json")))
-        if impl["encoder_vjp"] != vjp:
-            fail(f"the {vjp} attack recorded encoder VJP {impl['encoder_vjp']}")
+        if (impl["encoder_vjp"], impl["encoder_vjp_path"]) != (vjp, vjp):
+            fail(f"the {vjp} attack recorded encoder VJP flag {impl['encoder_vjp']}, "
+                 f"path {impl['encoder_vjp_path']}")
         seconds = stages["run_attack"][0]
         rates[f"{vjp} attack pair-iters/s, 24 pairs a call"] = (
             n_pairs * SPARSE_ITERS[0] / seconds)
@@ -2266,6 +2525,8 @@ def main() -> int:
           f"clock less the calibration's {calib_s:.2f} s)")
     exact_rate, clouds, exact, slice_idx = chamfer_matrix_rate(project, "data/synthetic")
     rates["chamfer matrix pair-evals/s"] = exact_rate
+    rates["eval forward drift, chamfer 2048 (12 vs 4s, sweep, plain sweep)"] = (
+        check_batch_invariance(victim, clouds, "chamfer 2048"))
     rates["reference-batch attack pair-iters/s"] = attack_at_reference_batch(victim)
 
     # --- the defenses on the chamfer victim's attack ------------------------
@@ -2409,12 +2670,14 @@ def main() -> int:
     rates["native PLY loader s"] = native_loader_check(project, "data/synthetic")
     victim = restore_victim(Configuration.load(osp.join(project, ae, "configuration")),
                             osp.join(project, ae), "cuda")
+    mesh_counts, new_rates = mesh_leg(project, ae, victim, smi)
+    rates.update(new_rates)
     new_rates, sparse_counts = sparse_legs(project, ae, victim, counters, n_pairs)
     rates.update(new_rates)
     del victim
     new_rates, precision_counts = precision_legs(project, ae, "data/synthetic", counters)
     rates.update(new_rates)
-    for counts in (sparse_counts, precision_counts,
+    for counts in (mesh_counts, sparse_counts, precision_counts,
                    import_leg(project, "data/synthetic", counters)):
         launches = {k: launches[k] + counts.get(k, 0) for k in launches}
     verify_cuda_stage(counters)  # checks against plain versions: not counted
@@ -2440,6 +2703,8 @@ def main() -> int:
     # target columns; the perturbation-norm distance holds every column
     check_attack_vs_host(victim, "emd", 1, (5, 3), dist="pert")
     check_attack_vs_host(victim, "emd", 1, (5, 3), columns=(0, 3, 4))
+    rates["eval forward drift, EMD 2048 (12 vs 4s, sweep, plain sweep)"] = (
+        check_batch_invariance(victim, dataset_clouds(project), "EMD 2048"))
     seconds = stages["run_attack"][0]
     rates["EMD attack pair-iters/s"] = n_pairs * EMD_ITERS[0] / seconds
     print(f"EMD attack {rates['EMD attack pair-iters/s']:.1f} pair-iters/s "
@@ -2527,4 +2792,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank(sys.argv[2:]))
     sys.exit(main())

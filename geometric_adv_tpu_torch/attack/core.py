@@ -48,8 +48,13 @@ by ``loss_dist``.
 ``AttackRunner`` differentiates the victim's encoder densely (autograd) or
 through the argmax-sparse VJP (``models/sparse_encode.py``, ``encoder_vjp``),
 and casts the victim's codes and reconstructions to float32, so a bfloat16
-victim's losses and metrics stay float32, as in the JAX package. Not
-ported: meshes (ROADMAP Queue 1 item 7).
+victim's losses and metrics stay float32, as in the JAX package.
+
+``AttackRunner(mesh=)`` (``parallel/``) shards each call's pairs over the
+processes of the mesh: each rank attacks its share of the call as a call of
+its own (its perturbation drawn as one), and ``gather_global`` assembles
+the call, so P ranks at a call of P * b pairs compute what one process
+computes at calls of b.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ from geometric_adv_tpu_torch.ops.chamfer import (
     nn_distance,
 )
 from geometric_adv_tpu_torch.ops.emd import emd_loss_fused
+from geometric_adv_tpu_torch.parallel import gather_global, local_rows
 
 # Pairs per attack call when the caller gives none: 1,024,000 point rows
 # (500 pairs at 2048 points), the JAX package's default dispatch size.
@@ -528,10 +534,16 @@ class AttackRunner:
     ``sparse_encode.make_sparse_encode``, "dense" and "auto" through
     autograd (``models/sparse_encode.py`` says why "auto" is dense);
     ``self.encoder_vjp`` is the path taken.
+
+    ``mesh`` shards each attack call's pairs over its processes (a mesh of
+    size 1 is ``None``); with more than one process the calibration stays
+    off, as in the JAX package, since ranks timing apart could bind
+    different routes.
     """
 
     def __init__(self, model, conf, device, chamfer_impl: str = "auto",
-                 batch_size: int | None = None, encoder_vjp: str = "auto"):
+                 batch_size: int | None = None, encoder_vjp: str = "auto",
+                 mesh=None):
         _check_loss_types(conf.loss, conf.loss_adv_type, conf.loss_dist_type)
         if chamfer_impl not in ("auto", "fused", "composed"):
             raise ValueError(f"unknown chamfer_impl {chamfer_impl!r}")
@@ -542,6 +554,7 @@ class AttackRunner:
         self.model = model.eval().requires_grad_(False)
         self.conf = conf
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.batch_size = batch_size
         self.calibration_seconds = 0.0
         sparse = encoder_vjp == "sparse"
@@ -593,7 +606,9 @@ class AttackRunner:
         adv [W,N,n,3], recon [W,N,m,3]) (reference: src/adv_ae.py:155-189).
         ``batch_size`` pairs go to each call (default: the runner's, else
         MAX_POINT_ROWS point rows); ``pert0`` ([N, n, 3]) replaces the
-        seeded init."""
+        seeded init. Under a mesh each call is padded to a multiple of its
+        size (the last pair repeated), each rank attacks its rows and the
+        gathered call is cut back to its pairs."""
         conf = self.conf
         n_examples = len(source_pc)
         batch_size = batch_size or self.batch_size or _auto_dispatch_batch(
@@ -601,17 +616,18 @@ class AttackRunner:
         )
         dist_weights = np.asarray(conf.dist_weight_list, np.float32)
 
-        def dev(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+        def dev(a, sl):
+            """The rows of call ``sl`` of ``a`` that this rank attacks."""
+            return local_rows(a[sl], self.mesh, self.device)[0]
 
         outs = []
         for s in range(0, n_examples, batch_size):
             t0 = time.time()
             sl = slice(s, min(s + batch_size, n_examples))
-            outs.append(attack_batch(
+            out = attack_batch(
                 self.encode, self.decode,
-                dev(source_pc[sl]), dev(target_latent[sl]), dev(target_pc[sl]),
-                dev(target_ae_loss_ref[sl]), dist_weights,
+                dev(source_pc, sl), dev(target_latent, sl), dev(target_pc, sl),
+                dev(target_ae_loss_ref, sl), dist_weights,
                 num_iterations=conf.num_iterations,
                 num_iterations_thresh=conf.num_iterations_thresh,
                 learning_rate=conf.learning_rate,
@@ -620,12 +636,15 @@ class AttackRunner:
                 ae_loss_type=conf.loss,
                 max_point_pert_weight=conf.max_point_pert_weight,
                 max_point_dist_weight=conf.max_point_dist_weight,
-                pert0=None if pert0 is None else dev(pert0[sl]),
+                pert0=None if pert0 is None else dev(pert0, sl),
                 chamfer_method=self.chamfer_method,
                 chamfer_refresh=self.chamfer_refresh,
-            ))
-            dur = time.time() - t0
+            )
             count = sl.stop - sl.start
+            # the pair axis of the [W, pairs, ...] outputs
+            outs.append(AttackOutputs(*(
+                a[:, :count] for a in gather_global(tuple(out), axis=1))))
+            dur = time.time() - t0
             msg = (
                 f"Attack pairs {s}-{sl.stop} of {n_examples}: {dur:.2f}s "
                 f"({conf.num_iterations * count * len(dist_weights) / dur:.0f} "

@@ -1,6 +1,6 @@
-"""Shared CLI plumbing: device selection, eval-artifact loading and the
-attack context (``geometric_adv_tpu/cli/common.py`` without its multi-host
-wiring, which is ROADMAP Queue 1 item 7).
+"""Shared CLI plumbing: device selection, eval-artifact loading, the
+attack context and the multi-process wiring
+(``geometric_adv_tpu/cli/common.py``).
 """
 
 from __future__ import annotations
@@ -14,8 +14,15 @@ import torch
 
 from geometric_adv_tpu_torch.attack.pipeline import prepare_data_for_attack
 from geometric_adv_tpu_torch.data.datasets import create_dir
+from geometric_adv_tpu_torch.parallel import maybe_initialize_from_env
 from geometric_adv_tpu_torch.train.config import Configuration
 from geometric_adv_tpu_torch.utils.artifacts import load_data
+
+# Multi-process wiring for every pipeline CLI: when the GAT_*/JAX_* variables
+# name a group of several processes, it comes up (gloo, each rank on its
+# card) before any stage touches a device, so that get_mesh() spans it. A
+# no-op otherwise.
+maybe_initialize_from_env()
 
 NN_IDX_DICT = {
     "latent_nn": "latent_nn_idx_test_set",
@@ -184,12 +191,13 @@ class AttackContext:
                 yield i, str(name)
 
 
-def restore_victim(conf: Configuration, ae_dir: str, device, restore_epoch=None):
-    """Build + restore the victim AE from a port checkpoint
-    (reference: run_attack.py:120-122)."""
+def restore_victim(conf: Configuration, ae_dir: str, device, restore_epoch=None,
+                   mesh=None):
+    """Build + restore the victim AE from a port checkpoint, every rank of
+    ``mesh`` the same one (reference: run_attack.py:120-122)."""
     from geometric_adv_tpu_torch.train.trainer import AETrainer
 
-    return AETrainer(conf, device).restore(ae_dir, restore_epoch)
+    return AETrainer(conf, device, mesh=mesh).restore(ae_dir, restore_epoch)
 
 
 def ensure_dir(path: str) -> str:

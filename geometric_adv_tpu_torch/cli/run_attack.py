@@ -11,11 +11,15 @@ routing is written to ``attack_impl.json``. ``--encoder_vjp sparse``
 differentiates the victim's encoder through the argmax-sparse VJP
 (``models/sparse_encode.py``); ``auto`` is dense on the CPU and the card.
 ``--matmul_precision`` sets the float32 matmuls' precision for this stage
-(``cli/common.py::resolve_device``). Flags keep the JAX stage's names;
-``--use_mesh 1`` on more than one card, which the port does not have yet,
-raises.
+(``cli/common.py::resolve_device``). Flags keep the JAX stage's names.
+``--use_mesh 1`` (the default) shards each attack call's pairs over the
+processes when several are up (``GAT_*`` variables, ``cli/common.py``;
+one process per card); the primary alone writes the artifacts, and every
+rank passes a barrier before it exits. ``attack_impl.json`` records the
+flags' values, and, under port-only keys, the path the encoder's VJP took,
+the batch, the device and the process count.
 ``--trace_dir`` writes a torch.profiler trace of the first class's attack
-(``utils/profiling.py``)."""
+on the primary (``utils/profiling.py``)."""
 
 import argparse
 import contextlib
@@ -23,7 +27,6 @@ import json
 import os.path as osp
 
 import numpy as np
-import torch
 
 from geometric_adv_tpu_torch.attack.core import AttackRunner, _auto_dispatch_batch
 from geometric_adv_tpu_torch.cli.common import (
@@ -35,19 +38,9 @@ from geometric_adv_tpu_torch.cli.common import (
     restore_victim,
     restored_tf32_flags,
 )
+from geometric_adv_tpu_torch.parallel import barrier, get_mesh, is_primary
 from geometric_adv_tpu_torch.utils.artifacts import load_data
 from geometric_adv_tpu_torch.utils.profiling import trace
-
-
-def _reject_unported(flags, device) -> None:
-    unported = {
-        "--use_mesh 1 on more than one device (ROADMAP Queue 1 item 7)":
-            bool(flags.use_mesh) and device.type == "cuda"
-            and torch.cuda.device_count() > 1,
-    }
-    chosen = [name for name, hit in unported.items() if hit]
-    if chosen:
-        raise NotImplementedError("not ported yet: " + "; ".join(chosen))
 
 
 def main(argv=None):
@@ -114,7 +107,6 @@ def _run(argv):
     flags = parser.parse_args(argv)
     print("Run attack flags:", flags)
     device = resolve_device(flags.device, flags.matmul_precision)
-    _reject_unported(flags, device)
     if flags.num_iterations_thresh > flags.num_iterations:
         raise ValueError("--num_iterations_thresh exceeds --num_iterations")
     if flags.chamfer_refresh < 0:
@@ -146,9 +138,12 @@ def _run(argv):
     conf.num_iterations_thresh = flags.num_iterations_thresh
     conf.chamfer_refresh = flags.chamfer_refresh
 
-    output_path = ensure_dir(osp.join(ctx.data_path, flags.output_folder_name))
+    primary = is_primary()
+    output_path = osp.join(ctx.data_path, flags.output_folder_name)
     conf.train_dir = output_path
-    conf.save(osp.join(output_path, "attack_configuration"))
+    if primary:
+        ensure_dir(output_path)
+        conf.save(osp.join(output_path, "attack_configuration"))
 
     # the flags may change what the (pre-mutation) AE config resolved
     ctx.conf = conf
@@ -166,33 +161,40 @@ def _run(argv):
         max((ctx.class_attack_data(name, ctx.ae_loss)[1].size
              for _, name in ctx.classes_iter()), default=1),
     )
-    victim = restore_victim(conf, ctx.ae_dir, device, flags.restore_epoch)
+    # one process: a mesh of size 1, which the trainer and the runner treat
+    # as none
+    mesh = get_mesh() if flags.use_mesh else None
+    victim = restore_victim(conf, ctx.ae_dir, device, flags.restore_epoch, mesh=mesh)
     runner = AttackRunner(victim.model, conf, device,
                           chamfer_impl=flags.chamfer_impl, batch_size=batch_size,
-                          encoder_vjp=flags.encoder_vjp)
+                          encoder_vjp=flags.encoder_vjp, mesh=mesh)
+    processes = 1 if runner.mesh is None else runner.mesh.size
     print(f"attack routing: {runner.attack_mode}, encoder VJP "
-          f"{runner.encoder_vjp}")
-    with open(osp.join(output_path, "attack_impl.json"), "w") as f:
-        json.dump(
-            {
-                "chamfer_impl_flag": flags.chamfer_impl,
-                "chamfer_method": runner.chamfer_method,
-                "chamfer_refresh": runner.chamfer_refresh,
-                "attack_mode": runner.attack_mode,
-                "batch_size": batch_size,
-                "calibration_seconds": runner.calibration_seconds,
-                "encoder_vjp": runner.encoder_vjp,
-                "matmul_precision": flags.matmul_precision,
-                "device": str(device),
-            },
-            f,
-            indent=1,
-        )
+          f"{runner.encoder_vjp}, {processes} process(es)")
+    if primary:
+        with open(osp.join(output_path, "attack_impl.json"), "w") as f:
+            json.dump(
+                {
+                    "chamfer_impl_flag": flags.chamfer_impl,
+                    "chamfer_method": runner.chamfer_method,
+                    "chamfer_refresh": runner.chamfer_refresh,
+                    "attack_mode": runner.attack_mode,
+                    "encoder_vjp": flags.encoder_vjp,
+                    "encoder_vjp_path": runner.encoder_vjp,
+                    "batch_size": batch_size,
+                    "calibration_seconds": runner.calibration_seconds,
+                    "matmul_precision": flags.matmul_precision,
+                    "device": str(device),
+                    "processes": processes,
+                },
+                f,
+                indent=1,
+            )
 
     for i, pc_class_name in ctx.classes_iter():
         print(f"attack shape class {pc_class_name} "
               f"({i + 1} of {len(ctx.pc_classes)})")
-        save_dir = ensure_dir(osp.join(output_path, pc_class_name))
+        save_dir = osp.join(output_path, pc_class_name)
 
         source_pc, target_pc = ctx.class_attack_data(
             pc_class_name, ctx.point_clouds
@@ -206,24 +208,30 @@ def _run(argv):
         target_ae_loss_ref = target_ae_loss_ref.reshape(-1)
 
         trace_cm = contextlib.nullcontext()
-        if flags.trace_dir is not None and i == 0:
+        if flags.trace_dir is not None and i == 0 and primary:
             print(f"tracing this class's attack into {flags.trace_dir}")
             trace_cm = trace(flags.trace_dir, device)
-        with open(osp.join(save_dir, "attack_stats.txt"), "a", 1) as fout:
-            fout.write(f"Attack flags: {flags}\n")
+        log_cm = contextlib.nullcontext()
+        if primary:
+            log_cm = open(osp.join(ensure_dir(save_dir), "attack_stats.txt"), "a", 1)
+        with log_cm as fout:
+            if fout is not None:
+                fout.write(f"Attack flags: {flags}\n")
             with trace_cm:
                 out = runner.attack(
                     source_pc, target_latent, target_pc, target_ae_loss_ref,
                     log_file=fout,
                 )
 
-        np.save(osp.join(save_dir, "adversarial_metrics"), out.metrics)
-        np.save(osp.join(save_dir, "adversarial_pc_input"), out.pc_input)
-        np.save(osp.join(save_dir, "adversarial_pc_recon"), out.pc_recon)
-        np.save(
-            osp.join(save_dir, "dist_weight"),
-            np.array(conf.dist_weight_list),
-        )
+        if primary:
+            np.save(osp.join(save_dir, "adversarial_metrics"), out.metrics)
+            np.save(osp.join(save_dir, "adversarial_pc_input"), out.pc_input)
+            np.save(osp.join(save_dir, "adversarial_pc_recon"), out.pc_recon)
+            np.save(
+                osp.join(save_dir, "dist_weight"),
+                np.array(conf.dist_weight_list),
+            )
+    barrier()  # the primary's artifacts are on disk for every rank
 
 
 if __name__ == "__main__":

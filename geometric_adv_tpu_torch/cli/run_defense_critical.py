@@ -78,13 +78,6 @@ def main(argv=None):
     conf.save(osp.join(output_path_orig, "defense_configuration"))
 
     victim = restore_victim(conf, ctx.ae_dir, device, flags.restore_epoch)
-    if flags.do_sanity_checks:
-        # the replay runs tst_ae's own calls, on the whole test set in its
-        # batches: the JAX CLI replays each class's rows alone, a batch of
-        # another shape whose GEMMs may round otherwise (on the CPU an EMD
-        # victim's loss then drifted 1.91e-6, past the 1e-7 bar)
-        replay_recon = victim.get_reconstructions(ctx.point_clouds)
-        replay_loss = victim.get_loss_per_pc(ctx.point_clouds)
 
     for i, pc_class_name in ctx.classes_iter():
         print(f"defend shape class {pc_class_name}")
@@ -100,13 +93,13 @@ def main(argv=None):
             source_recon_ref, _ = ctx.class_attack_data(
                 pc_class_name, ctx.reconstructions
             )
-            source_recon, _ = ctx.class_attack_data(pc_class_name, replay_recon)
+            source_recon = victim.get_reconstructions(source_pc)
             diff_recon = np.abs(source_recon - source_recon_ref).max()
             if not diff_recon < 1e-6:
                 raise RuntimeError(
                     f"source recon replay drift {diff_recon:.2e} >= 1e-6")
-            source_loss, _ = ctx.class_attack_data(pc_class_name, replay_loss)
-            diff_loss = np.abs(source_loss.reshape(-1) - source_loss_ref).max()
+            source_loss = victim.get_loss_per_pc(source_pc)
+            diff_loss = np.abs(source_loss - source_loss_ref).max()
             if not diff_loss < 1e-7:
                 raise RuntimeError(
                     f"source loss replay drift {diff_loss:.2e} >= 1e-7")

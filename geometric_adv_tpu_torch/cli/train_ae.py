@@ -3,7 +3,9 @@ reference: autoencoder/train_ae.py).
 
 Same flags, ``configuration.json``/``.txt``, data preparation (``sort_axes``,
 the cross-class shuffle with seed 55) and ``train_stats.txt`` as the JAX
-stage, plus ``--device``. It trains on one device; there is no mesh."""
+stage, plus ``--device``. It trains in one process on one device: over
+several processes (the JAX stage's mesh: batch norm over the global batch,
+the gradient all-reduce) it raises, ROADMAP Queue 1 item 7b."""
 
 import argparse
 import os
@@ -17,6 +19,7 @@ from geometric_adv_tpu_torch.cli.common import (
 from geometric_adv_tpu_torch.data.augment import sort_axes
 from geometric_adv_tpu_torch.data.datasets import PointCloudDataSet, load_dataset
 from geometric_adv_tpu_torch.data.synthetic import SHAPE_CLASSES
+from geometric_adv_tpu_torch.parallel import get_mesh
 from geometric_adv_tpu_torch.train.config import Configuration, default_train_params
 from geometric_adv_tpu_torch.train.trainer import AETrainer
 
@@ -56,6 +59,11 @@ def main(argv=None):
     flags = parser.parse_args(argv)
     print("Train autoencoder flags:", flags)
     device = resolve_device(flags.device)
+    mesh = get_mesh()
+    if mesh.size > 1:
+        raise NotImplementedError(
+            f"train_ae over {mesh.size} processes is not ported yet "
+            "(ROADMAP Queue 1 item 7b)")
 
     top_in_dir = osp.join(flags.project_dir, flags.data_folder)
     train_dir = ensure_dir(osp.join(flags.project_dir, flags.train_folder))

@@ -22,6 +22,11 @@ Entries are mean(d1) + mean(d2) of squared NN distances, the reference's
   chunk) and takes the exact ("direct") minimum over their k * g points.
   Every entry majorizes its exact value; with k = C it equals it. This mode
   is a PyTorch composition, as the JAX package's is an XLA one.
+
+Under a mesh of P processes (``parallel/``) ``pair_block`` is rounded up to
+a multiple of P, each block (the last one padded with (0, 0) self-pairs)
+is cut into P contiguous parts, rank p computes part p, and
+``gather_global`` assembles each chunk's blocks on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from geometric_adv_tpu_torch.ops.chamfer import nn_distance_values, pairwise_sqdist
+from geometric_adv_tpu_torch.parallel import gather_global
 
 PAIR_BLOCK = 512
 # the screened mode's block: its k candidate gathers of [block, n, g, 3]
@@ -101,12 +107,14 @@ def chamfer_distance_matrix(
     progress: bool = False,
     screen_chunks: int = 0,
     screen_k: int = 0,
+    mesh=None,
 ) -> np.ndarray:
     """Symmetric [N, N] float32 chamfer matrix over a set of clouds.
 
     ``screen_chunks`` = C > 0 selects the chunk-screened mode, scanning
     ``screen_k`` chunks a point (0: 8; capped at C), in blocks of at most
-    SCREEN_PAIR_BLOCK pairs.
+    SCREEN_PAIR_BLOCK pairs. ``mesh`` shards each block's pairs over its
+    processes (a mesh of size 1 is ``None``).
     """
     pcs = torch.as_tensor(np.asarray(point_clouds, np.float32), device=device)
     n_total = pcs.shape[0]
@@ -130,15 +138,30 @@ def chamfer_distance_matrix(
             d1, d2 = nn_distance_values(pcs[i], pcs[j])
         return d1.mean(dim=-1) + d2.mean(dim=-1)
 
-    chunk_pairs = pair_block * blocks_per_chunk
-    with torch.no_grad():
-        for s in range(0, n_pairs, chunk_pairs):
-            e = min(s + chunk_pairs, n_pairs)
-            d = torch.cat([
+    if mesh is not None and mesh.size > 1:
+        pair_block = -(-pair_block // mesh.size) * mesh.size
+        width = pair_block // mesh.size
+        ii, jj = (torch.cat([t, t.new_zeros(-n_pairs % pair_block)]) for t in (ii, jj))
+
+        def chunk_values(s, e):
+            """[blocks, P * width]: rank r computes columns [r*w, (r+1)*w)."""
+            own = [bs + mesh.rank * width for bs in range(s, e, pair_block)]
+            mine = torch.stack([block_values(ii[o:o + width], jj[o:o + width])
+                                for o in own])
+            return gather_global(mine, axis=1).reshape(-1)[:e - s]
+    else:
+        def chunk_values(s, e):
+            return torch.cat([
                 block_values(ii[bs:min(bs + pair_block, e)],
                              jj[bs:min(bs + pair_block, e)])
                 for bs in range(s, e, pair_block)
             ]).cpu().numpy()
+
+    chunk_pairs = pair_block * blocks_per_chunk
+    with torch.no_grad():
+        for s in range(0, n_pairs, chunk_pairs):
+            e = min(s + chunk_pairs, n_pairs)
+            d = chunk_values(s, e)
             out[iu[s:e], ju[s:e]] = d
             out[ju[s:e], iu[s:e]] = d
             if progress:

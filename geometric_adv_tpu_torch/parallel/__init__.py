@@ -1,0 +1,49 @@
+"""The process mesh and its sharding helpers
+(``geometric_adv_tpu/parallel``).
+
+The JAX package shards over a ``jax.sharding.Mesh`` of every chip. The port
+runs one process per card under ``torch.distributed``: the mesh is the
+process group, each pair-parallel stage (the attack's pair grid, the
+chamfer matrix's pairs, the victim's eval-mode batched forward) gives each
+rank its rows, and ``gather_global`` assembles the results on every rank.
+"""
+
+from geometric_adv_tpu_torch.parallel.distributed import (
+    barrier,
+    gather_global,
+    host_local_batch_to_global,
+    initialize_distributed,
+    is_primary,
+    make_global_replicated,
+    maybe_initialize_from_env,
+    shard_host_batch,
+)
+from geometric_adv_tpu_torch.parallel.mesh import (
+    Mesh,
+    Sharding,
+    batch_sharding,
+    get_mesh,
+    local_rows,
+    pad_to_multiple,
+    replicated,
+    shard_batch,
+)
+
+__all__ = [
+    "get_mesh",
+    "batch_sharding",
+    "replicated",
+    "shard_batch",
+    "pad_to_multiple",
+    "initialize_distributed",
+    "maybe_initialize_from_env",
+    "make_global_replicated",
+    "shard_host_batch",
+    "gather_global",
+    "is_primary",
+    "host_local_batch_to_global",
+    "barrier",
+    "local_rows",
+    "Mesh",
+    "Sharding",
+]

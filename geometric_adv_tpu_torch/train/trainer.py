@@ -9,13 +9,21 @@ the learning rate of the optional staircase epoch schedule. An epoch is a
 Python loop over batches with the data resident on the device, in the order
 of an on-device permutation drawn from a generator seeded with the epoch's
 number, so that a resumed run continues exactly. Inference runs in eval mode
-in batches of 250 clouds under ``no_grad``; results come back as numpy
+under ``no_grad``, over host chunks of 250 clouds, each run through the
+victim in blocks of ``FORWARD_BLOCK`` clouds; results come back as numpy
 (float32, also for a bfloat16 victim, whose values they hold exactly).
 
 ``conf.ae_dtype`` "bfloat16" builds the victim with flax's compute dtype
 (``models/layers.py``); its reconstructions are cast to float32 before the
-loss, so losses and gradients past the victim stay float32. Not ported: the
-mesh (ROADMAP Queue 1 item 7).
+loss, so losses and gradients past the victim stay float32.
+
+``mesh`` (``parallel/``): under a mesh of several processes the eval-mode
+batched forward and ``get_pre_symmetry_argmax`` pad each chunk to a multiple
+of the mesh size, each rank runs its rows and ``gather_global`` assembles
+them, as the JAX trainer does. Training under such a mesh (flax's batch
+norm over the global batch, the gradient all-reduce, the checkpoint of
+several processes) is ROADMAP Queue 1 item 7b: ``train`` and
+``partial_fit`` raise there.
 """
 
 from __future__ import annotations
@@ -30,8 +38,17 @@ from geometric_adv_tpu_torch.models.layers import compute_dtype
 from geometric_adv_tpu_torch.models.pointnet_ae import PointNetAE, init_weights
 from geometric_adv_tpu_torch.ops.chamfer import chamfer_loss_per_pc
 from geometric_adv_tpu_torch.ops.emd import emd_loss_per_pc
+from geometric_adv_tpu_torch.parallel import gather_global, local_rows
 from geometric_adv_tpu_torch.train import checkpoint as ckpt
 from geometric_adv_tpu_torch.train.config import Configuration
+
+# Clouds per eval-mode forward of the victim. Each block is zero-padded to
+# this size, so every GEMM of the eval forward runs on rows of one shape
+# whatever the caller's batch: the CPU's GEMMs and cuBLAS choose their
+# blocking, and with it each row's summation order, by shape, and the JAX
+# package's batched forward is bit-identical across batch sizes on the CPU
+# (geometric_adv_tpu/train/trainer.py:177-178).
+FORWARD_BLOCK = 16
 
 
 def reconstruction_loss_per_pc(recon, gt, loss_type: str):
@@ -45,13 +62,15 @@ def reconstruction_loss_per_pc(recon, gt, loss_type: str):
 
 class AETrainer:
     """Owns the victim model and its Adam optimizer on ``device``; seeded
-    init, then ``train`` or ``restore``."""
+    init, then ``train`` or ``restore``. ``mesh`` shards the eval-mode
+    batched forward over processes; a mesh of size 1 is ``None``."""
 
-    def __init__(self, conf: Configuration, device, seed: int = 42):
+    def __init__(self, conf: Configuration, device, seed: int = 42, mesh=None):
         if conf.loss not in ("chamfer", "emd"):
             raise ValueError(f"unknown loss {conf.loss!r}")
         self.conf = conf
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         model = PointNetAE(
             n_points=conf.n_points,
             bneck_size=conf.bneck_size,
@@ -98,8 +117,15 @@ class AETrainer:
         self.model.eval()
         return loss.detach(), recon.detach()
 
+    def _single_process_training(self) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"training under a mesh of {self.mesh.size} processes is not "
+                "ported yet (ROADMAP Queue 1 item 7b)")
+
     def partial_fit(self, x, gt=None):
         """reference: src/autoencoder.py:105-125 -> (recon numpy, loss)."""
+        self._single_process_training()
         x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
         gt = x if gt is None else torch.as_tensor(
             np.asarray(gt, np.float32), device=self.device)
@@ -165,6 +191,7 @@ class AETrainer:
     def train(self, train_data, conf=None, log_file=None, held_out_data=None):
         """``conf.training_epochs`` epochs over a ``PointCloudDataSet``;
         -> [(epoch, loss, seconds)] (reference: src/autoencoder.py:196-227)."""
+        self._single_process_training()
         conf = conf or self.conf
         stats = []
         n_batches = train_data.num_examples // conf.batch_size
@@ -245,30 +272,58 @@ class AETrainer:
             }
 
     # --- inference --------------------------------------------------------
+    def _block_outputs(self, xb, gb, outputs):
+        """The eval forward of at most FORWARD_BLOCK clouds ``xb`` (ground
+        truth ``gb`` for the loss) on the device, zero-padded to
+        FORWARD_BLOCK; -> the requested outputs of the real rows."""
+        k = len(xb)
+
+        def padded(t):
+            if k == FORWARD_BLOCK:
+                return t
+            return torch.cat([t, t.new_zeros((FORWARD_BLOCK - k,) + t.shape[1:])])
+
+        pre = self.model.encoder(padded(xb))
+        res = {"pre": pre}
+        if "pre_argmax" in outputs:
+            res["pre_argmax"] = pre.argmax(dim=-2).to(torch.int32)
+            res["pre_max"] = pre.amax(dim=-2)
+        if {"recon", "z", "loss"} & set(outputs):
+            res["z"] = pre.amax(dim=-2)  # as PointNetAE.forward
+            res["recon"] = self.model.decode(res["z"])
+        if "loss" in outputs:
+            res["loss"] = reconstruction_loss_per_pc(res["recon"], padded(gb),
+                                                     self.conf.loss)
+        return {name: res[name][:k] if res[name].dtype == torch.int32
+                else res[name][:k].float() for name in outputs}
+
     @torch.no_grad()
     def _batched_forward(self, pclouds, gt=None, batch_size=250,
                          outputs=("recon", "z", "pre", "loss")):
-        """Chunked eval-mode inference; only the requested ``outputs`` are
-        copied to the host."""
+        """Chunked eval-mode inference; only the requested ``outputs``
+        (among them "pre_argmax" and "pre_max", the pre-symmetry features'
+        per-channel argmax and max over the points) are copied to the host.
+
+        Each chunk of ``batch_size`` clouds runs in blocks of FORWARD_BLOCK
+        clouds, so a cloud's results do not depend on the chunk or the batch
+        it sits in. Under a mesh the chunk is padded to a multiple of its
+        size (the last cloud repeated), each rank runs its rows and
+        ``gather_global`` assembles the chunk."""
         self.model.eval()
         gt = pclouds if gt is None else gt
         outs = {k: [] for k in outputs}
         for s in range(0, len(pclouds), batch_size):
-            xb = torch.as_tensor(
-                np.asarray(pclouds[s : s + batch_size], np.float32),
-                device=self.device,
-            )
-            recon, z, pre = self.model(xb)
-            results = {"recon": recon, "z": z, "pre": pre}
-            if "loss" in outputs:
-                gb = torch.as_tensor(
-                    np.asarray(gt[s : s + batch_size], np.float32),
-                    device=self.device,
-                )
-                results["loss"] = reconstruction_loss_per_pc(
-                    recon, gb, self.conf.loss)
+            x, n = local_rows(pclouds[s : s + batch_size], self.mesh, self.device)
+            g = (local_rows(gt[s : s + batch_size], self.mesh, self.device)[0]
+                 if "loss" in outputs else None)
+            blocks = [self._block_outputs(
+                x[b : b + FORWARD_BLOCK],
+                None if g is None else g[b : b + FORWARD_BLOCK], outputs)
+                for b in range(0, len(x), FORWARD_BLOCK)]
+            picked = gather_global(
+                {k: torch.cat([blk[k] for blk in blocks]) for k in outputs})
             for k in outputs:
-                outs[k].append(results[k].float().cpu().numpy())
+                outs[k].append(picked[k][:n])
         return {k: np.concatenate(v) for k, v in outs.items()}
 
     def reconstruct(self, x, gt=None, compute_loss=True):
@@ -294,23 +349,14 @@ class AETrainer:
             pclouds, batch_size=batch_size, outputs=("pre",)
         )["pre"]
 
-    @torch.no_grad()
     def get_pre_symmetry_argmax(self, pclouds, batch_size=250):
         """Per-channel (argmax [N, bneck] int32, max [N, bneck]) over the
         points of the pre-symmetry features, reduced on the device so that
         only [N, bneck] crosses to the host, not the [N, n, bneck] map.
         ``torch.argmax`` takes the first maximal index, as ``jnp.argmax``."""
-        self.model.eval()
-        idxs, vals = [], []
-        for s in range(0, len(pclouds), batch_size):
-            xb = torch.as_tensor(
-                np.asarray(pclouds[s : s + batch_size], np.float32),
-                device=self.device,
-            )
-            pre = self.model.encoder(xb)
-            idxs.append(pre.argmax(dim=-2).to(torch.int32).cpu().numpy())
-            vals.append(pre.amax(dim=-2).float().cpu().numpy())
-        return np.concatenate(idxs), np.concatenate(vals)
+        out = self._batched_forward(pclouds, batch_size=batch_size,
+                                    outputs=("pre_argmax", "pre_max"))
+        return out["pre_argmax"], out["pre_max"]
 
     def get_loss_per_pc(self, feed_data, orig_data=None, batch_size=250):
         return self._batched_forward(

@@ -189,8 +189,10 @@ def test_run_attack_rejects_unported_flag_values(flags, tiny_project):
     """The two values the port once rejected now run: ``--encoder_vjp
     sparse`` takes the sparse backward (its counter moves) and
     ``--matmul_precision bfloat16`` computes full float32 on the CPU, as
-    XLA:CPU does; attack_impl.json records both, and the TF32 flags are as
-    they were after the stage. An unknown precision raises."""
+    XLA:CPU does; attack_impl.json records both (the ``--encoder_vjp`` flag
+    under ``encoder_vjp``, the path taken under ``encoder_vjp_path``), and
+    the TF32 flags are as they were after the stage. An unknown precision
+    raises."""
     import json
     import os.path as osp
 
@@ -210,7 +212,9 @@ def test_run_attack_rejects_unported_flag_values(flags, tiny_project):
     res = osp.join(d, ae, "eval", out)
     impl = json.load(open(osp.join(res, "attack_impl.json")))
     sparse = flags[1] == "sparse"
-    assert impl["encoder_vjp"] == ("sparse" if sparse else "dense")
+    # the flag under the JAX stage's key, the path taken under the port's
+    assert impl["encoder_vjp"] == ("sparse" if sparse else "auto")
+    assert impl["encoder_vjp_path"] == ("sparse" if sparse else "dense")
     assert (sparse_encode.BACKWARD_CALLS > calls) == sparse
     assert impl["matmul_precision"] == (None if sparse else "bfloat16")
     assert (torch.backends.cuda.matmul.allow_tf32,

@@ -7,7 +7,8 @@ their originals in the JAX package.
    ``geometric_adv_tpu_torch`` imports and the tiny slice runs through the
    stage CLIs on ``--device cpu``, from ``make_synthetic_data`` and
    ``train_ae --loss emd`` through the attack (also with ``--encoder_vjp
-   sparse``) and both defenses, then ``train_classifier``,
+   sparse``, and in 2 processes started with the ``GAT_`` variables, each
+   rank with the same modules blocked) and both defenses, then ``train_classifier``,
    ``run_classifier``, ``train_transfer`` (AtlasNet and FoldingNet),
    ``run_metro`` and ``import_reference_ckpt --model atlasnet`` with
    ``tst_transfer`` on what it wrote — as on a machine that has no JAX and
@@ -53,7 +54,7 @@ for name in ("cli.run_attack", "cli.train_ae", "ops.emd", "ops.cuda.emd",
              "cli.tst_transfer", "cli.run_transfer", "cli.evaluate_transfer",
              "cli.run_metro", "cli.import_reference_ckpt", "cli.verify_cuda",
              "train.import_tf", "train.import_torch", "models.sparse_encode",
-             "native"):
+             "native", "parallel", "parallel.mesh", "parallel.distributed"):
     assert "geometric_adv_tpu_torch." + name in names, names
 
 import numpy as np
@@ -88,6 +89,30 @@ run_attack.main(c + ["--ae_folder", ae, "--attack_pc_idx", sel,
                      "--num_iterations", "5", "--num_iterations_thresh", "3",
                      "--encoder_vjp", "sparse", "--output_folder_name", "attack_sparse"])
 m = np.load(d + "/" + ae + "/eval/attack_sparse/sphere/adversarial_metrics.npy")
+assert m.shape == (1, 8, 5) and np.isfinite(m).all(), m
+# the same attack in 2 processes started with the GAT_ variables, each
+# rank with the same modules blocked
+import json, os, socket, subprocess
+RANK = ("import sys\nfor name in %r:\n    sys.modules[name] = None\n"
+        "sys.path.insert(0, %r)\nfrom geometric_adv_tpu_torch.cli import run_attack\n"
+        "run_attack.main(sys.argv[1:])\n"
+        "leaked = [k for k, v in sys.modules.items() if v is not None and "
+        "k.split('.')[0] in %r]\nassert not leaked, leaked\n") % (
+            BLOCKED, sys.argv[1], BLOCKED)
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+ranks = [subprocess.Popen(
+    [sys.executable, "-c", RANK] + c + ["--ae_folder", ae, "--attack_pc_idx", sel,
+     "--num_pc_for_attack", "2", "--num_pc_for_target", "2", "--num_iterations", "5",
+     "--num_iterations_thresh", "3", "--batch_size", "8", "--output_folder_name",
+     "attack_mesh"],
+    env=dict(os.environ, OMP_NUM_THREADS="2", GAT_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+             GAT_NUM_PROCESSES="2", GAT_PROCESS_ID=str(r))) for r in range(2)]
+assert [p.wait(timeout=120) for p in ranks] == [0, 0]
+impl = json.load(open(d + "/" + ae + "/eval/attack_mesh/attack_impl.json"))
+assert impl["processes"] == 2 and impl["encoder_vjp"] == "auto", impl
+m = np.load(d + "/" + ae + "/eval/attack_mesh/sphere/adversarial_metrics.npy")
 assert m.shape == (1, 8, 5) and np.isfinite(m).all(), m
 a = ["--ae_folder", ae, "--attack_pc_idx", sel]
 run_defense_critical.main(c + a + ["--do_sanity_checks", "1"])

@@ -545,6 +545,40 @@ def test_emd_slice_attack_matches_jax(emd_slice_dirs, cls):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5, err_msg=name)
 
 
+def test_emd_slice_critical_replay_per_class(emd_slice_dirs, monkeypatch):
+    """run_defense_critical --do_sanity_checks 1 replays get_reconstructions
+    and get_loss_per_pc on each class's rows alone, as the JAX CLI does
+    (geometric_adv_tpu/cli/run_defense_critical.py:79-94), against tst_ae's
+    artifacts of the whole test set, at the reference's 1e-6 and 1e-7: the
+    EMD victim's forward must not depend on the batch its clouds sit in.
+    Every test cloud is a source here (4 a class), so that each one is
+    replayed in a batch of another size than tst_ae's."""
+    from geometric_adv_tpu_torch.cli import (
+        evaluate_attack,
+        get_dists_per_point,
+        run_attack,
+        run_defense_critical,
+    )
+
+    monkeypatch.setattr(port_core, "init_pert", jax_pert0)
+    d = osp.dirname(osp.dirname(osp.dirname(emd_slice_dirs[1])))
+    ae = "log/port_emd"
+    a = ["--project_dir", d, "--ae_folder", ae, "--attack_pc_idx", f"{ae}/{SEL}"]
+    cpu = ["--device", "cpu"]
+    run_attack.main(a + cpu + ["--num_pc_for_attack", "4", "--num_pc_for_target", "1",
+                               "--num_iterations", "2", "--num_iterations_thresh", "1",
+                               "--loss_dist_type", "pert", "--output_folder_name",
+                               "attack_every_source"])
+    folder = ["--attack_folder", "attack_every_source"]
+    get_dists_per_point.main(a + cpu + folder)
+    evaluate_attack.main(a + ["--output_folder_name", "attack_every_source"])
+    run_defense_critical.main(a + cpu + folder + ["--do_sanity_checks", "1"])
+    metrics = np.load(osp.join(emd_slice_dirs[1], "attack_every_source",
+                               "defense_critical_res", CLASSES[0],
+                               "defense_metrics.npy"))
+    assert metrics.shape == (1, 8, 4) and np.isfinite(metrics).all()
+
+
 @pytest.mark.parametrize("loss", ["chamfer", "emd"])
 def test_port_train_ae_cli_lowers_the_loss(tmp_path, loss):
     """The port's train_ae stage on the CPU: configuration, checkpoints and
