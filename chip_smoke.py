@@ -106,6 +106,16 @@ the script exits non-zero:
      get_pre_symmetry_argmax under the mesh; K1 and K3 must launch on both
      ranks in the attack and K2 in the matrix; a rank that exits non-zero
      or outlasts its timeout fails the run;
+   - mesh training: the mesh leg's processes then run ``train_ae``
+     (chamfer at 2048 points, 2 epochs at learning rate 5e-5; EMD at 1024,
+     1 epoch at the default 5e-4; full width, batch 50), as the two ranks
+     and as the one process; each rank must report gloo as its device backend (the ranks share
+     cuda:0) and launch the one process's kernels, K1 and K3 (chamfer) and
+     K6 (EMD) among them; then, in the one process, the leg's chamfer
+     training in process as is (equal to train_ae's, bit for bit) and on
+     inputs one ulp up, at 5e-5 and 5e-4, and the NCCL phase: a one-rank
+     NCCL group on the card through ``all_reduce_sum`` and the
+     differentiable all-reduce, forward and backward;
    - sparse and dense encoder VJP: run_attack ``--encoder_vjp sparse`` and
      ``dense`` (``--chamfer_impl composed``, 100/80 iterations, 24 pairs a
      call), each a leg (K1 and K3 must launch, the sparse backward exactly
@@ -164,7 +174,12 @@ the script exits non-zero:
    forward's drift printed); the mesh leg's attack artifacts against the
    one-rank run at rtol 1e-5 / atol 1e-6, its matrix against one process
    at rtol 1e-5 / atol 1e-7, its reconstructions at rtol 1e-5 / atol 1e-6
-   and argmax equal, every rank holding the same values;
+   and argmax equal, every rank holding the same values; the mesh
+   training's per-epoch losses against the one process at rtol 1e-5, every
+   rank's parameters, BN statistics and Adam moments rank 0's bit for bit
+   (a checksum per tensor), the restored checkpoints on 8 test clouds at
+   atol 5e-3 (loss rtol 5e-3), train_stats.txt written once, and the NCCL
+   phase's outputs equal to its inputs;
    the classifier's test-set labels recomputed on the host equal the
    card's except at near-ties (each printed with its margin), its label and
    eval_stats artifacts complete; each transfer AE's artifacts of the JAX
@@ -186,8 +201,10 @@ the script exits non-zero:
    pairs a call, 250 in one call, with profiles and peak memory), the
    float32, TF32 and bfloat16 victims' tst_ae seconds and attack rates with
    their deviation from float32, the blocked and plain eval forward's time
-   over 240 clouds, the 2-rank against the 1-rank attack's wall, and the
-   peak device memory of each leg.
+   over 240 clouds, the 2-rank against the 1-rank attack's wall, the mesh
+   training's 2-rank and 1-process walls and samples/s, one ulp's move of
+   one process's chamfer losses at both learning rates, and the peak
+   device memory of each leg.
 
 Its last lines are a JSON record of the kernels (each with its shape, its
 time and how it was taken (``ms_by``), the plain version's, its bound and
@@ -1876,8 +1893,10 @@ def mesh_rank(argv) -> int:
     """One process of the mesh leg (``chip_smoke.py --mesh-rank OUT
     run_attack flags...``), started by ``mesh_leg`` with the GAT_ variables
     or none: runs run_attack, and where the flags say so the chamfer matrix
-    and the batched forward under the mesh, each between barriers with the
-    launch counts zeroed, and writes what it measured to OUT/rank<r>.json."""
+    and the batched forward under the mesh, then the mesh training leg's
+    ``train_ae`` runs (``mesh_train_stages``), each between barriers with
+    the launch counts zeroed, and writes what it measured to
+    OUT/rank<r>.json."""
     from geometric_adv_tpu_torch.cli import common, run_attack
     from geometric_adv_tpu_torch.ops.cuda import build
     from geometric_adv_tpu_torch.ops.cuda import chamfer as cu
@@ -1917,6 +1936,7 @@ def mesh_rank(argv) -> int:
         amax, vmax = victim.get_pre_symmetry_argmax(clouds)
         np.savez(osp.join(out, f"rank{mesh.rank}.npz"), matrix=mat, recon=recon,
                  amax=amax, vmax=vmax)
+    mesh_train_stages(flags[flags.index("--project_dir") + 1], mesh, report)
     with open(osp.join(out, f"rank{mesh.rank}.json"), "w") as f:
         json.dump(report, f)
     return 0
@@ -1968,7 +1988,9 @@ def mesh_leg(project, ae, victim, smi):
     dataset's 240 clouds and ``get_reconstructions`` /
     ``get_pre_symmetry_argmax`` over them under the mesh against one
     process; K1 and K3 must launch on both ranks in the attack, K2 in the
-    matrix. Returns the leg's launches and its numbers."""
+    matrix. Returns the leg's launches, its numbers and the reports of the
+    one-rank run and of the two ranks, which hold the mesh training leg's
+    results too."""
     from geometric_adv_tpu_torch.ops.pairwise import chamfer_distance_matrix
 
     out = osp.join(project, "mesh")
@@ -2036,15 +2058,248 @@ def mesh_leg(project, ae, victim, smi):
           f"run_attack of {pair_iters // MESH_ITERS[0]} pairs x {MESH_ITERS[0]} iterations: "
           f"2 ranks on one card {two_s:.2f} s ({pair_iters / two_s:.1f} pair-iters/s), "
           f"1 rank {one_s:.2f} s ({pair_iters / one_s:.1f} pair-iters/s), "
-          f"{one_s / two_s:.3f}x; whole runs with start-up {two_wall:.2f} s and "
-          f"{one_wall:.2f} s; matrix under the mesh {two[0]['matrix_s']:.3f} s")
+          f"{one_s / two_s:.3f}x; whole runs with start-up (the mesh training leg's "
+          f"runs included) {two_wall:.2f} s and {one_wall:.2f} s; matrix under the mesh {two[0]['matrix_s']:.3f} s")
     launches = {}
     for r in one + two:
         for stage in ("attack", "matrix", "forward"):
             for k, v in r.get(stage + "_launches", {}).items():
                 launches[k] = launches.get(k, 0) + v
     return launches, {"mesh attack s, 2 ranks / 1 rank": [two_s, one_s],
-                      "mesh largest differences": diffs}
+                      "mesh largest differences": diffs}, (one[0], two)
+
+
+# --- training under the mesh ----------------------------------------------------
+# (loss, points, dataset, epochs, learning rate or None for train_ae's
+# default 5e-4): full width, batch 50. The chamfer run trains at a tenth of
+# the default: there, one ulp of input moves one process's per-epoch losses
+# by less than TRAIN_BAR, while at the default Adam's sign-normalised first
+# steps carry the chamfer NN's flips on near-ties to ~1e-4 (``ulp_control``
+# measures both in every run), beyond any bar two reduction orders can meet
+MESH_TRAINING = (
+    ("chamfer", N_POINTS, "data/synthetic", 2, 5e-5),
+    ("emd", 1024, "data/synthetic_1024", 1, None),
+)
+DEFAULT_LR = 5e-4  # train_ae's (train/config.py::default_train_params)
+MESH_TRAIN_KERNELS = {"chamfer": ("nn_distance_cuda", "chamfer_grad1_cuda"),
+                      "emd": ("emd_sweep_block_cuda",)}
+TRAIN_BAR = dict(rtol=1e-5)  # tests/test_distributed.py:186
+CKPT_BAR = dict(atol=5e-3)  # tests/test_distributed.py:215-223 (loss: rtol 5e-3)
+
+
+def state_checksums(trainer) -> dict:
+    """sha1 of every tensor of the trainer: parameters, BN running
+    statistics, Adam moments and step."""
+    import hashlib
+
+    tensors = dict(trainer.model.state_dict())
+    for name, p in trainer.model.named_parameters():
+        for k, v in trainer.optimizer.state[p].items():
+            tensors[f"adam.{name}.{k}"] = v
+    return {k: hashlib.sha1(v.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+            for k, v in tensors.items()}
+
+
+def mesh_train_folder(loss, n_points, ranks):
+    return f"log/mesh_train_{loss}_{n_points}_{ranks}proc"
+
+
+def ulp_control(project, data, n_points, epochs, lr, want):
+    """One process's own sensitivity: the leg's chamfer training run in
+    process on train_ae's training set (sort_axes, the seed-55 shuffle) as
+    is and one ulp up, at the leg's rate and at train_ae's default; the run
+    as is at the leg's rate must give ``want``, train_ae's losses, bit for
+    bit. -> {rate: the largest relative per-epoch difference one ulp made}."""
+    from geometric_adv_tpu_torch.data.augment import sort_axes
+    from geometric_adv_tpu_torch.data.datasets import PointCloudDataSet, load_dataset
+    from geometric_adv_tpu_torch.train.config import Configuration
+    from geometric_adv_tpu_torch.train.trainer import AETrainer
+
+    train = PointCloudDataSet(sort_axes(load_dataset(CLASSES, "train_set",
+                                                     osp.join(project, data))[0]),
+                              init_shuffle=False)
+    train.shuffle_data(seed=55)
+    clouds = train.point_clouds.astype(np.float32)
+    moved = {}
+    for rate in (lr, DEFAULT_LR):
+        conf = Configuration(n_input=[n_points, 3], loss="chamfer", batch_size=50,
+                             learning_rate=rate, training_epochs=epochs,
+                             saver_step=None, held_out_step=None)
+        losses = [np.array([s[1] for s in AETrainer(conf, "cuda").train(
+            PointCloudDataSet(x, init_shuffle=False), conf)])
+            for x in (clouds, np.nextafter(clouds, np.float32(np.inf)))]
+        if rate == lr and losses[0].tolist() != want:
+            fail(f"the in-process chamfer run gave {losses[0]}, train_ae {want}")
+        moved[rate] = float((np.abs(losses[1] - losses[0]) / losses[0]).max())
+    return moved
+
+
+def nccl_phase(report):
+    """One process forms a one-rank NCCL group on the card and passes CUDA
+    tensors through ``all_reduce_sum`` and the differentiable all-reduce,
+    forward and backward: each must return its input."""
+    import socket
+
+    from geometric_adv_tpu_torch import parallel
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    parallel.form_group(f"127.0.0.1:{port}", 1, 0)
+    mesh = parallel.get_mesh()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(4096, generator=gen, device="cuda")
+    dy = torch.randn(4096, generator=gen, device="cuda")
+    summed = parallel.all_reduce_sum(x.clone(), mesh)
+    xg = x.clone().requires_grad_(True)
+    y = parallel.differentiable_all_reduce_sum(xg, mesh)
+    (y * dy).sum().backward()
+    torch.cuda.synchronize()
+    report["nccl"] = {"backend": parallel.device_backend(),
+                      "all_reduce_sum": bool(torch.equal(summed, x)),
+                      "forward": bool(torch.equal(y.detach(), x)),
+                      "backward": bool(torch.equal(xg.grad, dy))}
+
+
+def mesh_train_stages(project, mesh, report):
+    """The mesh training leg's part of a rank: ``train_ae`` for each of
+    MESH_TRAINING, each between barriers with the launch counts zeroed,
+    then every tensor's checksum; alone, ``ulp_control`` and the NCCL
+    phase after. Adds them to ``report``."""
+    from geometric_adv_tpu_torch import parallel
+    from geometric_adv_tpu_torch.cli import train_ae
+    from geometric_adv_tpu_torch.ops.cuda import chamfer as cu
+    from geometric_adv_tpu_torch.ops.cuda import emd as cu_emd
+
+    report["device_backend"] = parallel.device_backend()
+    trainers = []
+
+    class Recorded(train_ae.AETrainer):  # keeps the stage's trainer to read
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+    train_ae.AETrainer = Recorded
+    for loss, n_points, data, epochs, lr in MESH_TRAINING:
+        for mod in (cu, cu_emd):
+            mod.reset_launch_counts()
+        parallel.barrier()
+        t0 = time.time()
+        stats = train_ae.main([
+            "--project_dir", project, "--device", "cuda", "--data_folder", data,
+            "--n_points", str(n_points), "--loss", loss, "--batch_size", "50",
+            "--training_epochs", str(epochs), "--learning_rate", str(lr or DEFAULT_LR),
+            "--train_folder", mesh_train_folder(loss, n_points, mesh.size)])
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = {**cu.launch_counts(), **cu_emd.launch_counts()}
+        parallel.barrier()
+        report[loss] = {"losses": [s[1] for s in stats], "epoch_s": [s[2] for s in stats],
+                        "s": seconds, "launches": launches,
+                        "checksums": state_checksums(trainers[-1])}
+    if mesh.size == 1:
+        loss, n_points, data, epochs, lr = MESH_TRAINING[0]
+        report["ulp_control"] = ulp_control(project, data, n_points, epochs, lr,
+                                            report[loss]["losses"])
+        nccl_phase(report)
+
+
+def mesh_train_leg(project, smi, one, two):
+    """``train_ae`` under the mesh (run by ``mesh_leg``'s processes after
+    their stages, ``one`` and ``two`` their reports): two ranks on the one
+    card against one process, chamfer at 2048 points for 2 epochs and EMD
+    at 1024 for 1, at full width and batch 50. Each rank must report gloo (the ranks share
+    cuda:0), the per-epoch losses must match one process at rtol 1e-5, every
+    rank's tensors rank 0's bit for bit, the restored checkpoints each
+    other on 8 test clouds (reconstructions atol 5e-3, loss rtol 5e-3), and
+    each rank must launch the one process's kernels, K1 and K3 (chamfer)
+    and K6 (EMD) among them; train_stats.txt is written once. Then the
+    NCCL phase's result. Returns the leg's launches and its numbers."""
+    from geometric_adv_tpu_torch.data.augment import sort_axes
+    from geometric_adv_tpu_torch.data.datasets import load_dataset
+    from geometric_adv_tpu_torch.train import checkpoint as ckpt
+    from geometric_adv_tpu_torch.train.config import Configuration
+    from geometric_adv_tpu_torch.train.trainer import build_trainer_from_checkpoint
+
+    for r in two:
+        backend = r["device_backend"]
+        print(f"mesh training rank {r['rank']} of {r['size']}: device {r['device']}, "
+              f"device backend {backend}")
+        if backend is None or backend[0] != "gloo" or "share cuda:0" not in backend[1]:
+            fail(f"mesh training rank {r['rank']}: device backend {backend}, not gloo "
+                 "for two ranks on cuda:0")
+    numbers, launches = {}, {}
+    for loss, n_points, data, epochs, lr in MESH_TRAINING:
+        want = one[loss]
+        ran = {k for k, v in want["launches"].items() if v > 0}
+        if not set(MESH_TRAIN_KERNELS[loss]) <= ran:
+            fail(f"one-process {loss} training launched {sorted(ran)}")
+        for r in two:
+            got = r[loss]
+            np.testing.assert_allclose(got["losses"], want["losses"], **TRAIN_BAR,
+                                       err_msg=f"{loss} rank {r['rank']}")
+            if got["checksums"] != two[0][loss]["checksums"]:
+                bad = [k for k, v in got["checksums"].items()
+                       if v != two[0][loss]["checksums"][k]]
+                fail(f"{loss}: rank {r['rank']}'s tensors differ from rank 0's: {bad}")
+            if {k for k, v in got["launches"].items() if v > 0} != ran:
+                fail(f"{loss}: rank {r['rank']} launched {got['launches']}, one process "
+                     f"{want['launches']}")
+        for r in (one, *two):
+            for k, v in r[loss]["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        folders = [osp.join(project, mesh_train_folder(loss, n_points, n)) for n in (1, 2)]
+        rows = open(osp.join(folders[1], "train_stats.txt")).read().splitlines()
+        if [ln.split("\t")[0] for ln in rows] != [f"{e:04d}" for e in range(1, epochs + 1)]:
+            fail(f"{loss}: the 2-rank train_stats.txt holds {rows}")
+        conf = Configuration.load(osp.join(folders[0], "configuration"))
+        epoch = ckpt.latest_epoch(folders[0])
+        if epoch is None or ckpt.latest_epoch(folders[1]) != epoch:
+            fail(f"{loss}: checkpoints {epoch} and {ckpt.latest_epoch(folders[1])}")
+        probe = sort_axes(load_dataset(CLASSES, "test_set",
+                                       osp.join(project, data))[0][:8]).astype(np.float32)
+        (r1, l1), (r2, l2) = [build_trainer_from_checkpoint(conf, f, epoch, "cuda")
+                              .reconstruct(probe) for f in folders]
+        np.testing.assert_allclose(r2, r1, **CKPT_BAR, err_msg=f"{loss} checkpoint")
+        np.testing.assert_allclose(l2, l1, rtol=5e-3, err_msg=f"{loss} checkpoint loss")
+        samples = epochs * (4 * 51 // 50) * 50
+        two_s, one_s = max(r[loss]["s"] for r in two), want["s"]
+        epoch_s = [max(r[loss]["epoch_s"][e] for r in two) for e in range(epochs)]
+        numbers[loss] = {"2 ranks s": two_s, "1 process s": one_s,
+                         "2 ranks samples/s": samples / two_s,
+                         "1 process samples/s": samples / one_s,
+                         "largest loss difference": max(
+                             abs(a - b) for r in two
+                             for a, b in zip(r[loss]["losses"], want["losses"])),
+                         "checkpoint recon difference": float(np.abs(r2 - r1).max()),
+                         "epoch s, 2 ranks / 1 process": [epoch_s, want["epoch_s"]],
+                         "losses": want["losses"]}
+        print(f"mesh training {loss} at {n_points} points ({smi}): {epochs} epochs of "
+              f"{samples // epochs} samples at learning rate {lr or DEFAULT_LR}, 2 ranks on one card {two_s:.2f} s "
+              f"({samples / two_s:.1f} samples/s), 1 process {one_s:.2f} s "
+              f"({samples / one_s:.1f} samples/s), {one_s / two_s:.3f}x (stage walls; "
+              f"epochs {[round(t, 4) for t in epoch_s]} s against "
+              f"{[round(t, 4) for t in want['epoch_s']]} s); losses "
+              f"{want['losses']}, largest difference "
+              f"{numbers[loss]['largest loss difference']:.3e}; ranks bit-equal; "
+              f"checkpoint reconstructions within "
+              f"{numbers[loss]['checkpoint recon difference']:.3e}; launches a rank "
+              f"{ {k: v for k, v in two[0][loss]['launches'].items() if v} }")
+    ulp = {float(k): v for k, v in one["ulp_control"].items()}
+    numbers["one ulp of input, largest relative epoch-loss change, by rate"] = ulp
+    print(f"mesh training: one process's own sensitivity, chamfer: one ulp "
+          f"of input moves its per-epoch losses by up to {ulp} relative (by learning "
+          f"rate; the bar is {TRAIN_BAR['rtol']})")
+    nccl = one["nccl"]
+    print(f"NCCL phase: one process formed a one-rank NCCL group on cuda:0 "
+          f"({nccl['backend']}); all_reduce_sum {nccl['all_reduce_sum']}, the "
+          f"differentiable all-reduce forward {nccl['forward']} and backward "
+          f"{nccl['backward']} returned their inputs. This shows that the NCCL group "
+          "forms and the helpers drive it; it shows nothing across cards.")
+    if nccl["backend"] is None or nccl["backend"][0] != "nccl" or not (
+            nccl["all_reduce_sum"] and nccl["forward"] and nccl["backward"]):
+        fail(f"the NCCL phase: {nccl}")
+    return launches, {"mesh training": numbers}
 
 
 def native_loader_check(project, data):
@@ -2670,14 +2925,16 @@ def main() -> int:
     rates["native PLY loader s"] = native_loader_check(project, "data/synthetic")
     victim = restore_victim(Configuration.load(osp.join(project, ae, "configuration")),
                             osp.join(project, ae), "cuda")
-    mesh_counts, new_rates = mesh_leg(project, ae, victim, smi)
+    mesh_counts, new_rates, reports = mesh_leg(project, ae, victim, smi)
+    rates.update(new_rates)
+    mesh_train_counts, new_rates = mesh_train_leg(project, smi, *reports)
     rates.update(new_rates)
     new_rates, sparse_counts = sparse_legs(project, ae, victim, counters, n_pairs)
     rates.update(new_rates)
     del victim
     new_rates, precision_counts = precision_legs(project, ae, "data/synthetic", counters)
     rates.update(new_rates)
-    for counts in (mesh_counts, sparse_counts, precision_counts,
+    for counts in (mesh_counts, mesh_train_counts, sparse_counts, precision_counts,
                    import_leg(project, "data/synthetic", counters)):
         launches = {k: launches[k] + counts.get(k, 0) for k in launches}
     verify_cuda_stage(counters)  # checks against plain versions: not counted

@@ -17,6 +17,13 @@ permutation, each batch jittered by N(0, 0.01) clipped at +-0.05
 drawn from one generator seeded with the epoch's number. Inference runs in
 eval mode in batches of 250 clouds and returns int8 argmax labels, the first
 maximum on ties.
+
+``mesh`` (``parallel/``), as the JAX trainer's: ``classify`` pads each batch
+to a multiple of the mesh size, each rank runs its rows and
+``gather_global`` assembles them; ``train`` runs every step whole on every
+rank (the JAX trainer replicates the classifier's state and does not shard
+its epoch), so the ranks hold the same weights; the primary alone writes
+checkpoints.
 """
 
 from __future__ import annotations
@@ -33,9 +40,19 @@ from geometric_adv_tpu_torch.models.pointnet_cls import (
     init_classifier_weights,
     set_bn_momentum,
 )
+from geometric_adv_tpu_torch.parallel import gather_global, local_rows
 from geometric_adv_tpu_torch.train import checkpoint as ckpt
 
 JITTER_SIGMA, JITTER_CLIP = 0.01, 0.05  # reference: classifier/provider.py:66-77
+
+
+def jitter_point_cloud(batch, sigma=0.01, clip=0.05, rng=None):
+    """reference: classifier/provider.py:66-77."""
+    rng = rng or np.random
+    return batch + np.clip(
+        sigma * rng.standard_normal(batch.shape).astype(batch.dtype),
+        -clip, clip,
+    )
 
 
 def bn_momentum_schedule(step, batch_size, decay_step=200000.0, init_decay=0.5,
@@ -53,12 +70,14 @@ def bn_momentum_schedule(step, batch_size, decay_step=200000.0, init_decay=0.5,
 
 class ClassifierTrainer:
     """Owns the classifier and its Adam optimizer on ``device``; seeded init,
-    then ``train`` or ``restore``."""
+    then ``train`` or ``restore``. ``mesh`` shards ``classify`` over
+    processes; a mesh of size 1 is ``None``."""
 
     def __init__(self, num_classes: int = 13, batch_size: int = 32,
                  base_lr: float = 0.001, decay_step: int = 200000,
                  decay_rate: float = 0.7, seed: int = 0, bn_momentum: float = 0.9,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.num_classes = num_classes
         self.batch_size = batch_size
         self.base_lr = base_lr
@@ -154,19 +173,21 @@ class ClassifierTrainer:
 
     def classify(self, point_clouds, batch_size=None) -> np.ndarray:
         """Predicted labels, int8 (reference: pointnet_classifier.py:54-73),
-        in batches of 250 by default."""
+        in batches of 250 by default; under a mesh each rank labels its rows
+        of each batch, padded to a multiple of the mesh size."""
         batch_size = batch_size or 250
         pcs = np.asarray(point_clouds, np.float32)
         preds = []
         for s in range(0, len(pcs), batch_size):
-            xb = torch.as_tensor(pcs[s:s + batch_size], device=self.device)
-            preds.append(self._logits(xb).argmax(dim=-1).cpu().numpy())
+            xb, n = local_rows(pcs[s:s + batch_size], self.mesh, self.device)
+            preds.append(gather_global(self._logits(xb).argmax(dim=-1))[:n])
         return np.concatenate(preds).astype(np.int8)
 
     def save(self, train_dir, epoch=None):
+        """Under a mesh every rank calls it; the primary writes."""
         epoch = self.epoch if epoch is None else epoch
         return ckpt.save_checkpoint(train_dir, epoch, self.model.state_dict(),
-                                    self.optimizer.state_dict())
+                                    self.optimizer.state_dict(), mesh=self.mesh)
 
     def restore(self, train_dir, epoch=None):
         if epoch is None:

@@ -3,11 +3,16 @@ reference: autoencoder/train_ae.py).
 
 Same flags, ``configuration.json``/``.txt``, data preparation (``sort_axes``,
 the cross-class shuffle with seed 55) and ``train_stats.txt`` as the JAX
-stage, plus ``--device``. It trains in one process on one device: over
-several processes (the JAX stage's mesh: batch norm over the global batch,
-the gradient all-reduce) it raises, ROADMAP Queue 1 item 7b."""
+stage, plus ``--device``. Started in several processes (the ``GAT_``
+variables, ``cli/common.py``), it trains under the mesh of all of them
+(``AETrainer``: each rank steps on its rows of every batch, batch norm over
+the global batch, the gradients summed over the ranks), as the JAX stage
+does over several processes. The primary alone writes ``configuration``,
+``train_stats.txt`` and the checkpoints; every rank prints the epoch
+lines."""
 
 import argparse
+import contextlib
 import os
 import os.path as osp
 
@@ -19,7 +24,7 @@ from geometric_adv_tpu_torch.cli.common import (
 from geometric_adv_tpu_torch.data.augment import sort_axes
 from geometric_adv_tpu_torch.data.datasets import PointCloudDataSet, load_dataset
 from geometric_adv_tpu_torch.data.synthetic import SHAPE_CLASSES
-from geometric_adv_tpu_torch.parallel import get_mesh
+from geometric_adv_tpu_torch.parallel import get_mesh, is_primary
 from geometric_adv_tpu_torch.train.config import Configuration, default_train_params
 from geometric_adv_tpu_torch.train.trainer import AETrainer
 
@@ -59,11 +64,9 @@ def main(argv=None):
     flags = parser.parse_args(argv)
     print("Train autoencoder flags:", flags)
     device = resolve_device(flags.device)
+    # the mesh of every process where the group has several; one process
+    # is a mesh of size 1, which the trainer treats as none
     mesh = get_mesh()
-    if mesh.size > 1:
-        raise NotImplementedError(
-            f"train_ae over {mesh.size} processes is not ported yet "
-            "(ROADMAP Queue 1 item 7b)")
 
     top_in_dir = osp.join(flags.project_dir, flags.data_folder)
     train_dir = ensure_dir(osp.join(flags.project_dir, flags.train_folder))
@@ -97,7 +100,8 @@ def main(argv=None):
         sort_axes=bool(flags.sort_axes),
         held_out_step=5,
     )
-    conf.save(osp.join(train_dir, "configuration"))
+    if is_primary():
+        conf.save(osp.join(train_dir, "configuration"))
     if flags.save_config_and_exit:
         return
 
@@ -113,8 +117,10 @@ def main(argv=None):
         sets.append(data)
     pc_data_train, pc_data_val = sets
 
-    trainer = AETrainer(conf, device)
-    with open(osp.join(train_dir, "train_stats.txt"), "a", 1) as fout:
+    trainer = AETrainer(conf, device, mesh=mesh)
+    stats_file = osp.join(train_dir, "train_stats.txt")
+    with (open(stats_file, "a", 1) if is_primary()
+          else contextlib.nullcontext()) as fout:
         return trainer.train(
             pc_data_train, conf, log_file=fout,
             held_out_data=pc_data_val if pc_data_val.num_examples else None,

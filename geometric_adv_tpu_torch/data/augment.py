@@ -122,3 +122,22 @@ def device_augment(batch: torch.Tensor, generator: torch.Generator,
                            torch.stack([zero, zero, one])])
         batch = batch @ rot
     return batch
+
+
+def euler2mat(rotation: np.ndarray, z_only: bool = True) -> np.ndarray:
+    """Rotation matrix from (x, y, z) Euler angles
+    (reference: src/shift_rotate_util.py:65-101)."""
+    x, y, z = rotation
+    cz, sz = np.cos(z), np.sin(z)
+    mz = np.array([[cz, -sz, 0], [sz, cz, 0], [0, 0, 1]])
+    if z_only:
+        m = mz
+    else:
+        cy, sy = np.cos(y), np.sin(y)
+        my = np.array([[cy, 0, sy], [0, 1, 0], [-sy, 0, cy]])
+        cx, sx = np.cos(x), np.sin(x)
+        mx = np.array([[1, 0, 0], [0, cx, -sx], [0, sx, cx]])
+        m = mx @ my @ mz
+    m = m.astype(np.float32)
+    m[np.abs(m) < 1e-10] = 0.0
+    return m

@@ -138,6 +138,10 @@ class AtlasNet(nn.Module):
               else square_template_points)
         return fn(self.pts_per_primitive)
 
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        """[b, n, 3] -> latent [b, bottleneck]."""
+        return self.encoder(x)
+
     def decode(self, latent: torch.Tensor, template_pts: torch.Tensor) -> torch.Tensor:
         """template_pts [nb_primitives, P, dim] -> [b, nb_primitives * P, 3]."""
         return torch.cat([getattr(self, f"decoder_{i}")(template_pts[i], latent)
@@ -149,5 +153,5 @@ class AtlasNet(nn.Module):
         if template_pts is None:
             tpl = torch.as_tensor(self.regular_template(), device=x.device)
             template_pts = tpl.expand((self.nb_primitives,) + tuple(tpl.shape))
-        latent = self.encoder(x)
+        latent = self.encode(x)
         return self.decode(latent, template_pts), latent

@@ -121,8 +121,12 @@ class FoldingNet(nn.Module):
         self.encoder = FoldingNetEncoder(bn_momentum)
         self.decoder = FoldingNetDecoder()
 
+    def encode(self, x, cov, nbr_idx):
+        """-> code [..., 512]."""
+        return self.encoder(x, cov, nbr_idx)
+
     def forward(self, x, cov, nbr_idx):
         """-> (recon [..., 2025, 3], first fold, code [..., 512])."""
-        code = self.encoder(x, cov, nbr_idx)
+        code = self.encode(x, cov, nbr_idx)
         recon, p1 = self.decoder(code)
         return recon, p1, code

@@ -19,6 +19,12 @@ Batch norm follows flax 0.12's ``nn.BatchNorm``: in eval mode it uses its
 running statistics, which is how the attack and eval stages run the victim
 (frozen stats, reference: attacker/run_attack.py:88-90); in train mode it
 normalises with the batch statistics and updates the running ones.
+
+Under a mesh of several processes (``set_batch_norm_mesh``, which the AE
+trainer calls), each rank holds its rows of the batch and train mode takes
+the statistics over the global batch, as GSPMD does for flax's batch norm on
+a batch-sharded array: one differentiable all-reduce sums every rank's
+``sum(x)`` and ``sum(x*x)``, and both divide by the global count.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from collections.abc import Sequence
 
 import torch
 from torch import nn
+
+from geometric_adv_tpu_torch.parallel.distributed import differentiable_all_reduce_sum
 
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -69,6 +77,9 @@ class BatchNorm(nn.Module):
     (flax's ``momentum``, the reference's ``b_norm_decay``), the biased
     variance included: ``torch.nn.functional.batch_norm`` would weight the
     other way and store the unbiased variance.
+
+    ``mesh`` (None: one process) makes train mode's statistics those of the
+    global batch, every rank holding an equal share of its rows.
     """
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9,
@@ -81,6 +92,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.dtype != torch.float32:
@@ -92,14 +104,30 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
+            if self.mesh is None:
+                mean, mean_sq = x.mean(dim=axes), (x * x).mean(dim=axes)
+            else:
+                sums = differentiable_all_reduce_sum(
+                    torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes)]), self.mesh)
+                count = x.numel() // x.shape[-1] * self.mesh.size
+                mean, mean_sq = (sums / count).chunk(2)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 keep = self.momentum
                 self.running_mean.copy_(keep * self.running_mean + (1 - keep) * mean)
                 self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
+
+
+def set_batch_norm_mesh(model: nn.Module, mesh) -> None:
+    """Make every ``BatchNorm`` of ``model`` take its train-mode statistics
+    over ``mesh``'s global batch (None, or a mesh of one process: the
+    rank's own batch)."""
+    mesh = mesh if mesh is not None and mesh.size > 1 else None
+    for module in model.modules():
+        if isinstance(module, BatchNorm):
+            module.mesh = mesh
 
 
 class PointMLP(nn.Module):

@@ -6,10 +6,20 @@ runs one process per card under ``torch.distributed``: the mesh is the
 process group, each pair-parallel stage (the attack's pair grid, the
 chamfer matrix's pairs, the victim's eval-mode batched forward) gives each
 rank its rows, and ``gather_global`` assembles the results on every rank.
+Training under the mesh gives each rank its rows of every batch: the batch
+norm sums its statistics over the ranks (``differentiable_all_reduce_sum``)
+and the step sums the gradients (``all_reduce_sum``), over NCCL or gloo as
+the layout allows (``device_backend``).
 """
 
 from geometric_adv_tpu_torch.parallel.distributed import (
+    all_reduce_sum,
+    backend_for_layout,
     barrier,
+    broadcast_object,
+    device_backend,
+    differentiable_all_reduce_sum,
+    form_group,
     gather_global,
     host_local_batch_to_global,
     initialize_distributed,
@@ -44,6 +54,12 @@ __all__ = [
     "host_local_batch_to_global",
     "barrier",
     "local_rows",
+    "all_reduce_sum",
+    "differentiable_all_reduce_sum",
+    "device_backend",
+    "backend_for_layout",
+    "form_group",
+    "broadcast_object",
     "Mesh",
     "Sharding",
 ]

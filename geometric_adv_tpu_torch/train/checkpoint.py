@@ -14,6 +14,8 @@ import os
 
 import torch
 
+from geometric_adv_tpu_torch.parallel.distributed import barrier, is_primary
+
 CHECKPOINT_SUBDIR = "checkpoints"
 
 
@@ -34,8 +36,16 @@ def _to_cpu(tree):
 
 
 def save_checkpoint(train_dir: str, epoch: int, state_dict: dict,
-                    opt_state: dict | None = None) -> str:
+                    opt_state: dict | None = None, mesh=None) -> str:
+    """Write the checkpoint of ``epoch``. Under a mesh of several processes
+    every rank calls it: the primary writes, and all return once the file
+    is on disk."""
     path = checkpoint_path(train_dir, epoch)
+    if mesh is not None and mesh.size > 1:
+        if is_primary():
+            save_checkpoint(train_dir, epoch, state_dict, opt_state)
+        barrier()
+        return path
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     torch.save(

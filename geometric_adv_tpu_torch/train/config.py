@@ -5,9 +5,8 @@ from its ``__init__``, so the port keeps its own copy of this pure
 numpy/json dataclass, in the same ``configuration.json`` schema: either
 package loads what the other saved (pinned by ``tests/test_torch_imports.py``).
 ``default_train_params`` and ``from_reference_txt`` (the reference-checkpoint
-importer's ``--reference_config``) are copied too. Not copied, as nothing in
-the port calls them: ``copy``, ``exists_and_is_not_none`` and
-``resolved_n_output``.
+importer's ``--reference_config``) are copied too, as are the helpers no
+stage calls: ``copy``, ``exists_and_is_not_none`` and ``resolved_n_output``.
 """
 
 from __future__ import annotations
@@ -97,9 +96,25 @@ class Configuration:
     extra: dict = field(default_factory=dict)
 
     # ------------------------------------------------------------------
+    def exists_and_is_not_none(self, attribute: str) -> bool:
+        """reference: src/autoencoder.py:59-60."""
+        return getattr(self, attribute, None) is not None
+
+    def copy(self) -> "Configuration":
+        return dataclasses.replace(
+            self,
+            **{
+                f.name: _deep_copy_value(getattr(self, f.name))
+                for f in dataclasses.fields(self)
+            },
+        )
+
     @property
     def n_points(self) -> int:
         return self.n_input[0]
+
+    def resolved_n_output(self) -> list:
+        return self.n_output if self.n_output is not None else self.n_input
 
     # --- serialization -------------------------------------------------
     def to_dict(self) -> dict[str, Any]:
@@ -202,6 +217,14 @@ class Configuration:
         conf = cls.from_dict(d)
         conf.extra.update(extra)
         return conf
+
+
+def _deep_copy_value(v):
+    if isinstance(v, dict):
+        return {k: _deep_copy_value(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_deep_copy_value(x) for x in v]
+    return v
 
 
 def default_train_params() -> dict:

@@ -20,10 +20,16 @@ loss, so losses and gradients past the victim stay float32.
 ``mesh`` (``parallel/``): under a mesh of several processes the eval-mode
 batched forward and ``get_pre_symmetry_argmax`` pad each chunk to a multiple
 of the mesh size, each rank runs its rows and ``gather_global`` assembles
-them, as the JAX trainer does. Training under such a mesh (flax's batch
-norm over the global batch, the gradient all-reduce, the checkpoint of
-several processes) is ROADMAP Queue 1 item 7b: ``train`` and
-``partial_fit`` raise there.
+them, as the JAX trainer does. Training shards each batch over the ranks as
+the JAX trainer's sharding constraint does: every rank holds the epoch's
+data, draws the one-process run's permutation and augmentations for the
+whole batch and steps on its rows (``batch_sharding``), its batch norms
+taking their statistics over the global batch (``set_batch_norm_mesh``); the
+loss is the rank's per-cloud losses summed over the global batch size, and
+one all-reduce of a flat buffer sums the gradients, with the loss beside
+them, before the same Adam step on every rank. The ranks' states stay
+equal, bit for bit. A batch that does not split evenly over the ranks
+raises ``ValueError``. The primary alone writes checkpoints.
 """
 
 from __future__ import annotations
@@ -34,11 +40,17 @@ import numpy as np
 import torch
 
 from geometric_adv_tpu_torch.data.augment import apply_augmentations, device_augment
-from geometric_adv_tpu_torch.models.layers import compute_dtype
+from geometric_adv_tpu_torch.models.layers import compute_dtype, set_batch_norm_mesh
 from geometric_adv_tpu_torch.models.pointnet_ae import PointNetAE, init_weights
 from geometric_adv_tpu_torch.ops.chamfer import chamfer_loss_per_pc
 from geometric_adv_tpu_torch.ops.emd import emd_loss_per_pc
-from geometric_adv_tpu_torch.parallel import gather_global, local_rows
+from geometric_adv_tpu_torch.parallel import (
+    all_reduce_sum,
+    batch_sharding,
+    broadcast_object,
+    gather_global,
+    local_rows,
+)
 from geometric_adv_tpu_torch.train import checkpoint as ckpt
 from geometric_adv_tpu_torch.train.config import Configuration
 
@@ -62,8 +74,9 @@ def reconstruction_loss_per_pc(recon, gt, loss_type: str):
 
 class AETrainer:
     """Owns the victim model and its Adam optimizer on ``device``; seeded
-    init, then ``train`` or ``restore``. ``mesh`` shards the eval-mode
-    batched forward over processes; a mesh of size 1 is ``None``."""
+    init, then ``train`` or ``restore``. ``mesh`` shards training and the
+    eval-mode batched forward over processes; a mesh of size 1 is
+    ``None``."""
 
     def __init__(self, conf: Configuration, device, seed: int = 42, mesh=None):
         if conf.loss not in ("chamfer", "emd"):
@@ -80,6 +93,7 @@ class AETrainer:
             dtype=compute_dtype(conf.ae_dtype),
         )
         init_weights(model, torch.Generator().manual_seed(seed))
+        set_batch_norm_mesh(model, self.mesh)
         self.model = model.to(self.device).eval()
         self.optimizer = torch.optim.Adam(
             self.model.parameters(), lr=conf.learning_rate, betas=(0.9, 0.999),
@@ -103,13 +117,26 @@ class AETrainer:
         states = self.optimizer.state.values()
         return int(next(iter(states))["step"]) if states else 0
 
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of a batch of ``n`` (all of them without a
+        mesh); ValueError where ``n`` does not split over the ranks."""
+        return slice(None) if self.mesh is None else batch_sharding(self.mesh).rows(n)
+
     def _train_step(self, x: torch.Tensor, gt: torch.Tensor):
-        """One Adam step on the batch; -> (mean loss, recon), on the device."""
+        """One Adam step on the batch, of which ``x`` and ``gt`` are this
+        rank's rows; -> (the global batch's mean loss, this rank's recon),
+        on the device."""
         self.model.train()
         recon, _, _ = self.model(x)
-        loss = reconstruction_loss_per_pc(recon, gt, self.conf.loss).mean()
+        per_pc = reconstruction_loss_per_pc(recon, gt, self.conf.loss)
         self.optimizer.zero_grad(set_to_none=True)
+        if self.mesh is None:
+            loss = per_pc.mean()
+        else:
+            loss = per_pc.sum() / (len(per_pc) * self.mesh.size)
         loss.backward()
+        if self.mesh is not None:
+            loss = self._all_reduce_grads(loss.detach())
         lr = self.learning_rate(self._updates_done())
         for group in self.optimizer.param_groups:
             group["lr"] = lr
@@ -117,20 +144,26 @@ class AETrainer:
         self.model.eval()
         return loss.detach(), recon.detach()
 
-    def _single_process_training(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"training under a mesh of {self.mesh.size} processes is not "
-                "ported yet (ROADMAP Queue 1 item 7b)")
+    def _all_reduce_grads(self, loss: torch.Tensor) -> torch.Tensor:
+        """Sum every gradient, and ``loss``, over the ranks in one
+        all-reduce of a flat buffer; -> the summed loss."""
+        grads = [p.grad for p in self.model.parameters()]
+        flat = all_reduce_sum(
+            torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)]), self.mesh)
+        for g, summed in zip(grads, flat.split([g.numel() for g in grads] + [1])):
+            g.copy_(summed.view_as(g))
+        return flat[-1]
 
     def partial_fit(self, x, gt=None):
-        """reference: src/autoencoder.py:105-125 -> (recon numpy, loss)."""
-        self._single_process_training()
-        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        gt = x if gt is None else torch.as_tensor(
-            np.asarray(gt, np.float32), device=self.device)
-        loss, recon = self._train_step(x, gt)
-        return recon.float().cpu().numpy(), float(loss)
+        """reference: src/autoencoder.py:105-125 -> (recon numpy, loss).
+        Under a mesh every process passes the whole batch and receives the
+        whole reconstruction and the global loss."""
+        x = np.asarray(x, np.float32)
+        gt = x if gt is None else np.asarray(gt, np.float32)
+        rows = self._rows(len(x))
+        loss, recon = self._train_step(torch.as_tensor(x[rows], device=self.device),
+                                       torch.as_tensor(gt[rows], device=self.device))
+        return gather_global(recon.float()), float(loss)
 
     def _epoch_generator(self, epoch: int) -> torch.Generator:
         # one stream per epoch, seeded with its number (the JAX trainer keys
@@ -142,6 +175,7 @@ class AETrainer:
         """One epoch over device-resident clouds; -> mean batch loss."""
         gen = self._epoch_generator(self.epoch + 1)
         bs = conf.batch_size
+        rows = self._rows(bs)
         perm = torch.randperm(data.shape[0], generator=gen,
                               device=self.device)[: n_batches * bs]
         gauss = conf.gauss_augment
@@ -161,7 +195,7 @@ class AETrainer:
                     # the augmented batch is its own ground truth
                     # (reference: src/pointnet_ae.py:123-128)
                     gt = batch
-            losses.append(self._train_step(batch, gt)[0])
+            losses.append(self._train_step(batch[rows], gt[rows])[0])
         return float(torch.stack(losses).mean()) if losses else 0.0
 
     def _held_out_epoch(self, data, conf):
@@ -190,9 +224,14 @@ class AETrainer:
 
     def train(self, train_data, conf=None, log_file=None, held_out_data=None):
         """``conf.training_epochs`` epochs over a ``PointCloudDataSet``;
-        -> [(epoch, loss, seconds)] (reference: src/autoencoder.py:196-227)."""
-        self._single_process_training()
+        -> [(epoch, loss, seconds)] (reference: src/autoencoder.py:196-227).
+        Under a mesh every process calls it with the same data; the ranks
+        take up the primary's numpy stream, from which the held-out epochs
+        draw their batches and augmentations."""
         conf = conf or self.conf
+        self._rows(conf.batch_size)  # raises before any collective
+        if self.mesh is not None:
+            np.random.set_state(broadcast_object(np.random.get_state()))
         stats = []
         n_batches = train_data.num_examples // conf.batch_size
         data = torch.as_tensor(train_data.point_clouds.astype(np.float32),
@@ -243,9 +282,10 @@ class AETrainer:
 
     # --- checkpointing ----------------------------------------------------
     def save(self, train_dir, epoch=None):
+        """Under a mesh every rank calls it; the primary writes."""
         epoch = self.epoch if epoch is None else epoch
         return ckpt.save_checkpoint(train_dir, epoch, self.model.state_dict(),
-                                    self.optimizer.state_dict())
+                                    self.optimizer.state_dict(), mesh=self.mesh)
 
     def restore(self, train_dir, epoch=None):
         """Weights, BN statistics, epoch and -- where the checkpoint has
@@ -444,5 +484,5 @@ class AETrainer:
 
 def build_trainer_from_checkpoint(conf: Configuration, train_dir: str,
                                   epoch: int | None = None,
-                                  device="cuda") -> AETrainer:
-    return AETrainer(conf, device).restore(train_dir, epoch)
+                                  device="cuda", mesh=None) -> AETrainer:
+    return AETrainer(conf, device, mesh=mesh).restore(train_dir, epoch)

@@ -15,8 +15,12 @@ their originals in the JAX package.
    no tensorflow; so do a frozen-assignment attack and the pruned chamfer
    of ``ops/chamfer_hier.py``, and a plot call raises ImportError.
 2. The copies (``attack/pipeline.py``, ``train/config.py`` and the data /
-   augmentation / artifact / statistics helpers) give the originals' results
-   on the same inputs.
+   augmentation / artifact / statistics helpers, and the public helpers no
+   stage calls: ``Configuration.copy``, ``exists_and_is_not_none`` and
+   ``resolved_n_output``, ``artifact_name`` and ``save_artifact``,
+   ``ThroughputMeter``, ``plot_3d_point_cloud``, ``euler2mat`` and
+   ``jitter_point_cloud``) give the originals' results on the same inputs;
+   ``log_compile_time`` times one call in the port's idiom.
 """
 
 import io
@@ -173,11 +177,13 @@ ev = tst_transfer.main(c + ["--ae_folder", ae, "--ae_type", "atlasnet",
                             "--train_folder", "log/atlas_ref"])
 assert np.isfinite(ev["loss"]), ev
 from geometric_adv_tpu_torch.utils import plots
-try:
-    plots.plot_attack_triplet(*np.zeros((3, 4, 3)), d + "/p.png")
-    raise AssertionError("a plot call ran without matplotlib")
-except ImportError:
-    pass
+for plot in (lambda: plots.plot_attack_triplet(*np.zeros((3, 4, 3)), d + "/p.png"),
+             lambda: plots.plot_3d_point_cloud(np.zeros((4, 3)), save_path=d + "/q.png")):
+    try:
+        plot()
+        raise AssertionError("a plot call ran without matplotlib")
+    except ImportError:
+        pass
 
 import torch
 from geometric_adv_tpu_torch.attack.core import attack_batch
@@ -314,6 +320,108 @@ def test_configuration_copy_round_trips_with_original(tmp_path):
     from geometric_adv_tpu_torch.train import config as copy_config
 
     assert copy_config.default_train_params() == orig_config.default_train_params()
+
+
+def test_configuration_helpers_match_original():
+    from geometric_adv_tpu.train.config import Configuration as Orig
+    from geometric_adv_tpu_torch.train.config import Configuration as Copy
+
+    kw = dict(n_input=[64, 3], gauss_augment={"mu": 0.0, "sigma": [0.01]},
+              extra={"k": [1, {"j": [2]}]})
+    a, b = Copy(**kw), Orig(**kw)
+    ca, cb = a.copy(), b.copy()
+    assert ca.to_dict() == cb.to_dict() == a.to_dict()
+    ca.gauss_augment["sigma"].append(1.0)
+    ca.extra["k"][1]["j"].append(3)
+    ca.n_input[0] = 32
+    assert a.to_dict() == b.to_dict()  # the copy is deep
+    for attr in ("n_output", "train_dir", "n_input", "gauss_augment", "missing"):
+        assert a.exists_and_is_not_none(attr) == b.exists_and_is_not_none(attr)
+    assert a.resolved_n_output() == b.resolved_n_output() == [64, 3]
+    a.n_output = b.n_output = [32, 3]
+    assert a.resolved_n_output() == b.resolved_n_output() == [32, 3]
+
+
+def test_artifact_helpers_match_originals(tmp_path):
+    from geometric_adv_tpu import utils as orig
+    from geometric_adv_tpu_torch import utils as copy
+
+    data = np.random.RandomState(0).rand(3, 4).astype(np.float32)
+    for args in (("point_clouds", "test_set", ["13l"]), ("ae_loss", None, "13l"),
+                 ("latent", "train_set", ["a", "b"]), ("x", "", ())):
+        assert copy.artifact_name(*args) == orig.artifact_name(*args)
+        paths = [mod.save_artifact(str(tmp_path / name), args[0], data, *args[1:])
+                 for mod, name in ((copy, "c"), (orig, "o"))]
+        assert osp.basename(paths[0]) == osp.basename(paths[1])
+        np.testing.assert_array_equal(np.load(paths[0]), np.load(paths[1]))
+    assert copy.load_data(str(tmp_path / "c"), None, ["latent"]).shape == (3, 4)
+
+
+def test_profiling_helpers(monkeypatch, capsys):
+    """ThroughputMeter gives the original's rate and line on the same
+    clock; log_compile_time makes one call, prints its time and returns the
+    function."""
+    from geometric_adv_tpu.utils import profiling as orig
+    from geometric_adv_tpu_torch.utils import profiling as copy
+
+    lines = []
+    for mod in (copy, orig):
+        ticks = iter([1.0, 1.5, 2.0, 4.25])
+        monkeypatch.setattr(mod.time, "perf_counter", lambda: next(ticks))
+        meter = mod.ThroughputMeter("pair-iters")
+        for n in (100, 300):
+            with meter.measure(n_items=n):
+                pass
+        lines.append((str(meter), meter.rate, meter.calls))
+    monkeypatch.undo()
+    assert lines[0] == lines[1] and lines[0][1] == 400 / 2.75
+
+    import torch
+
+    calls = []
+
+    def fn(x, scale=1.0):
+        calls.append(x)
+        return {"y": torch.as_tensor(x) * scale}
+
+    assert copy.log_compile_time(fn, 2.0, label="step", scale=3.0) is fn
+    assert calls == [2.0]
+    out = capsys.readouterr().out.strip()
+    assert out.startswith("[profiling] step: first call ") and out.endswith("s")
+
+
+def test_plot_3d_point_cloud_matches_original(tmp_path):
+    import matplotlib.image
+
+    from geometric_adv_tpu.utils import plots as orig
+    from geometric_adv_tpu_torch.utils import plots as copy
+
+    pc = np.random.RandomState(0).rand(50, 3) - 0.5
+    images = []
+    for mod, name in ((copy, "c.png"), (orig, "o.png")):
+        mod.plot_3d_point_cloud(pc, title="t", elev=20, save_path=str(tmp_path / name))
+        images.append(matplotlib.image.imread(str(tmp_path / name)))
+    assert images[0].shape == images[1].shape
+    np.testing.assert_array_equal(images[0], images[1])
+
+
+def test_numpy_helpers_match_originals():
+    from geometric_adv_tpu.classify.trainer import jitter_point_cloud as o_jitter
+    from geometric_adv_tpu.data.augment import euler2mat as o_euler
+    from geometric_adv_tpu_torch.classify.trainer import jitter_point_cloud
+    from geometric_adv_tpu_torch.data.augment import euler2mat
+
+    for rotation in ([0.1, -0.4, 2.0], [0.0, 0.0, np.pi / 2], [1.0, 2.0, 3.0]):
+        for z_only in (True, False):
+            got, want = euler2mat(rotation, z_only), o_euler(rotation, z_only)
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_array_equal(got, want)
+    batch = np.random.RandomState(1).rand(2, 30, 3).astype(np.float32)
+    for kw in (dict(), dict(sigma=0.05, clip=0.02)):
+        got = jitter_point_cloud(batch, rng=np.random.RandomState(4), **kw)
+        want = o_jitter(batch, rng=np.random.RandomState(4), **kw)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def test_data_copies_match_originals(tmp_path):
@@ -454,6 +562,11 @@ def test_utils_copies_match_originals(tmp_path):
     ("models.atlasnet", "sphere_template_points"),
     ("models.atlasnet", "square_template_points"),
     ("models.foldingnet", "folding_grid"),
+    ("utils.artifacts", "artifact_name"),
+    ("utils.artifacts", "save_artifact"),
+    ("data.augment", "euler2mat"),
+    ("classify.trainer", "jitter_point_cloud"),
+    ("train.config", "_deep_copy_value"),
 ])
 def test_numpy_copies_keep_their_originals_source(module, name):
     """The host-numpy copies are their originals' code, line for line, so

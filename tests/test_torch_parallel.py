@@ -386,18 +386,6 @@ def test_four_process_forward_matches_single(four_rank_stages):
     np.testing.assert_allclose(ranks[0]["vmax"], vmax, rtol=1e-5, atol=1e-6)
 
 
-def test_training_under_a_mesh_raises():
-    from geometric_adv_tpu_torch.train.config import Configuration
-    from geometric_adv_tpu_torch.train.trainer import AETrainer
-
-    trainer = AETrainer(Configuration(**forward_conf()), "cpu",
-                        mesh=Mesh(2, 0, torch.device("cpu")))
-    x = np.zeros((8, 32, 3), np.float32)
-    for call in (lambda: trainer.train(None), lambda: trainer.partial_fit(x)):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            call()
-
-
 # --- run_attack as 2 CLI processes -------------------------------------------
 @pytest.fixture(scope="module")
 def cli_project(tmp_path_factory):

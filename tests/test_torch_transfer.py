@@ -92,6 +92,11 @@ def test_atlasnet_eval_matches_jax(template):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
     np.testing.assert_allclose(latent.numpy(), np.asarray(want_latent), rtol=0, atol=1e-5)
     np.testing.assert_array_equal(model.regular_template(), jmodel.regular_template())
+    want_code = jmodel.apply({"params": params, "batch_stats": stats}, x,
+                             method=jax_atlas.AtlasNet.encode)
+    with torch.no_grad():
+        code = model.encode(torch.from_numpy(x))
+    np.testing.assert_allclose(code.numpy(), np.asarray(want_code), rtol=0, atol=1e-5)
 
 
 def test_graph_features_match_jax_with_duplicates():
@@ -117,7 +122,12 @@ def test_foldingnet_eval_matches_jax():
     with torch.no_grad():
         got, mid, code = model.eval()(torch.from_numpy(x), pcov, pnbr)
     assert got.shape == (2, 2025, 3)
-    for g, w in ((got, want), (mid, want_mid), (code, want_code)):
+    with torch.no_grad():
+        encoded = model.encode(torch.from_numpy(x), pcov, pnbr)
+    want_encoded = jmodel.apply({"params": params, "batch_stats": stats}, x, cov, nbr,
+                                method=jax_fold.FoldingNet.encode)
+    for g, w in ((got, want), (mid, want_mid), (code, want_code),
+                 (encoded, want_encoded)):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-5)
 
 
