@@ -96,6 +96,11 @@ the script exits non-zero:
      must launch exactly on the refresh schedule, K1, K2, K3 never;
    - fused: run_attack ``--chamfer_impl fused``; K5 must launch, K1 and K3
      never;
+   - latent-space attack: run_attack as runner_pipeline's latent stage runs
+     it (``--loss_adv_type latent --dist_weight_list 150.0``, into
+     latent_space_attack; cut to 20/10 iterations and 6 pairs a class,
+     ``--chamfer_impl composed``), get_dists_per_point and evaluate_attack
+     on it; K1 and K3 must launch;
    - the native PLY loader over the written tree beside the python parser
      (the chamfer leg's datasets must all have been parsed natively);
    - mesh: two ranks of this script (``--mesh-rank``) on the one card,
@@ -143,6 +148,11 @@ the script exits non-zero:
      never there;
    - chamfer at 1024 points: ``train_ae --loss chamfer --n_points 1024``
      (2 epochs) and tst_ae; K5 (the fused loss) must launch;
+   - pipeline: ``python3 -m geometric_adv_tpu_torch.runner_pipeline quick``
+     in build/chip_smoke/pipeline/, its own 30 processes on its own
+     dataset (4 classes x 30 clouds at 512 points); each stage reports its
+     launches at its exit: K5 in train_ae, K1 and K3 or K5 in both attacks,
+     K2 in prepare_indices_for_attack and run_metro;
    all on a synthetic dataset of sphere, cube, torus and cone, 60 clouds each;
 5. output checks per leg: every artifact has the JAX stages' shape and is
    finite (the defenses' dtypes too), the training loss falls, each attack
@@ -186,7 +196,20 @@ the script exits non-zero:
    stages' shapes, finite, and the first class's T-RE recomputed on the
    host within rtol 2e-4; every metro distance, rebuilt from the same
    instances and seeded samples, equal through K2 and on the host's chunked
-   plain route to run_metro's;
+   plain route to run_metro's; the latent-space attack's class means of
+   each metric column within 3% of the same stage's on the host (plain
+   versions, the same seeded initial perturbation), the bar proven both
+   ways in the run (six perturbations of the sources move the card's own
+   means less, a planted distance-weight fault moves them more), and its
+   reconstructions within the attack's cloud bar (1e-5) in every pair
+   where no critical point of the max-pool parts card and host; the share
+   of entries within the attack's own bars (metrics rtol 2e-4 / atol
+   1e-6, clouds atol 1e-5), which float32 noise already exceeds at full
+   width, printed beside the perturbations'; the start-up of an idle
+   stage's process (interpreter, torch, CUDA context, cli/common); the
+   pipeline's 30 exit codes 0 and ``PIPELINE COMPLETE``, every artifact of
+   ``runner_pipeline.check_artifacts`` with the JAX stages' shape, and the
+   identity transfer's sanity checks passed for each class;
 6. rates: train samples/s per leg, attack pair-iterations/s of every attack
    leg and, for the exact, frozen-10 and fused chamfer attacks, at the
    reference's batch of 250 pairs and for the EMD attacks (2048 and 1024
@@ -203,8 +226,9 @@ the script exits non-zero:
    their deviation from float32, the blocked and plain eval forward's time
    over 240 clouds, the 2-rank against the 1-rank attack's wall, the mesh
    training's 2-rank and 1-process walls and samples/s, one ulp's move of
-   one process's chamfer losses at both learning rates, and the peak
-   device memory of each leg.
+   one process's chamfer losses at both learning rates, the pipeline's
+   stage walls, peak memory and launches, and the peak device memory of
+   each leg.
 
 Its last lines are a JSON record of the kernels (each with its shape, its
 time and how it was taken (``ms_by``), the plain version's, its bound and
@@ -2696,6 +2720,306 @@ def verify_cuda_stage(counters):
     return counts
 
 
+# --- the latent-space attack and the pipeline runner ---------------------------
+# the attack's bars between two implementations (tests/test_torch_attack_frozen.py),
+# reported for the latent leg: at full width float32 rounding alone exceeds
+# them (PERF.md §6), as the card's own runs from perturbed sources show. The
+# leg holds each class's mean of each metric column at LATENT_MEAN_RTOL and
+# proves the bar both ways in every run: the card's runs from perturbed
+# sources (LATENT_PERTURBATIONS) must stay under it, and the same attack with
+# a planted fault (the distance weight 150 -> LATENT_FAULT_WEIGHT) must not.
+# 3% sits about halfway, on a log scale, between the perturbations' largest
+# move (1.55%) and the fault's (7.28%) (PERF.md §6, PR 15). Where no
+# critical point of the victim's max-pool parts the two clouds, the
+# reconstructions are held elementwise at the attack's cloud bar.
+LATENT_METRIC_TOL = dict(rtol=2e-4, atol=1e-6)
+LATENT_CLOUD_ATOL = 1e-5
+LATENT_MEAN_RTOL = 0.03
+PIPELINE_DIR = osp.join(WORK, "pipeline")
+LATENT_ARTIFACTS = ("adversarial_metrics", "adversarial_pc_input", "adversarial_pc_recon")
+LATENT_WEIGHT = 150.0
+LATENT_FAULT_WEIGHT = 135.0
+# one ulp up and down, and scaled by 1 +- 2^-20 and 1 +- 2^-19 (~1e-6, the
+# size of the card's and the host's rounding difference in a float32 GEMM
+# over 64-256 terms)
+LATENT_PERTURBATIONS = (
+    ("ulp up", lambda x: np.nextafter(x, np.float32(np.inf))),
+    ("ulp down", lambda x: np.nextafter(x, np.float32(-np.inf))),
+    *((f"x(1{k:+d}*2^-20)", lambda x, k=k: (x * np.float32(1 + k * 2.0 ** -20)).astype(np.float32))
+      for k in (1, -1, 2, -2)),
+)
+
+
+def latent_within(got, want, name):
+    """(share of entries within the attack's bar for artifact ``name``, the
+    largest entry's distance in units of that bar)."""
+    if name == "adversarial_metrics":
+        lim = LATENT_METRIC_TOL["atol"] + LATENT_METRIC_TOL["rtol"] * np.abs(want)
+    else:
+        lim = LATENT_CLOUD_ATOL
+    ratio = np.abs(got - want) / lim
+    return float((ratio <= 1).mean()), float(ratio.max())
+
+
+def latent_mean_rel(got, want):
+    """Relative difference of each metric column's mean over a class's
+    pairs: ``got``/``want`` are [W, pairs, 5] metrics."""
+    g, w = got[0].mean(axis=0), want[0].mean(axis=0)
+    return np.abs(g - w) / np.abs(w)
+
+
+def latent_controls(project, ae, sel):
+    """The latent attack on the card through the stage's runner and
+    configuration, per class: from its sources (``base``), from each of
+    ``LATENT_PERTURBATIONS`` of them, and from its sources with
+    ``LATENT_FAULT_WEIGHT`` in place of the distance weight (``fault``).
+    Not counted: it runs after the leg. Returns ({class: {"base",
+    "perturbed", "fault"}}, the victim)."""
+    import copy
+
+    from geometric_adv_tpu_torch.attack.core import AttackRunner
+    from geometric_adv_tpu_torch.cli.common import NN_IDX_DICT, AttackContext, restore_victim
+    from geometric_adv_tpu_torch.utils.artifacts import load_data
+
+    ctx = AttackContext(project, ae, attack_folder="latent_space_attack",
+                        attack_pc_idx=sel, num_pc_for_attack=1)
+    ctx.nn_idx = load_data(ctx.data_path, ctx.files,
+                           [NN_IDX_DICT[ctx.conf.target_pc_idx_type]])
+    if [float(w) for w in ctx.conf.dist_weight_list] != [LATENT_WEIGHT]:
+        fail(f"the latent stage's distance weights {ctx.conf.dist_weight_list}")
+    victim = restore_victim(ctx.conf, ctx.ae_dir, "cuda")
+    runner = AttackRunner(victim.model, ctx.conf, "cuda", chamfer_impl="composed")
+    conf = copy.deepcopy(ctx.conf)
+    conf.dist_weight_list = [LATENT_FAULT_WEIGHT]
+    faulty = AttackRunner(victim.model, conf, "cuda", chamfer_impl="composed")
+    runs = {}
+    for c in CLASSES:
+        src, tgt = ctx.class_attack_data(c, ctx.point_clouds)
+        _, latent = ctx.class_attack_data(c, ctx.latent_vectors)
+        _, loss = ctx.class_attack_data(c, ctx.ae_loss)
+        loss = loss.reshape(-1)
+        runs[c] = {
+            "base": runner.attack(src, latent, tgt, loss),
+            "perturbed": [runner.attack(f(src), latent, tgt, loss)
+                          for _, f in LATENT_PERTURBATIONS],
+            "fault": faulty.attack(src, latent, tgt, loss),
+        }
+    return runs, victim
+
+
+def latent_critical_moves(victim, card, host, card_recon, host_recon):
+    """Where the card's and the host's adversarial clouds part by more than
+    the cloud bar, whether a moved point is critical (an argmax of the
+    victim's max-pool in either cloud): -> (points moved, pairs with a
+    critical point moved, the largest reconstruction gap in those pairs,
+    the largest in the others)."""
+    crit = [victim.get_pre_symmetry_argmax(x)[0] for x in (card, host)]
+    moved = np.abs(card - host).max(axis=-1) > LATENT_CLOUD_ATOL  # [pairs, n]
+    gap = np.abs(card_recon - host_recon).reshape(len(card), -1).max(axis=1)
+    hit = np.array([moved[i, np.union1d(crit[0][i], crit[1][i])].any()
+                    for i in range(len(card))])
+    return (int(moved.sum()), int(hit.sum()), float(gap[hit].max(initial=0.0)),
+            float(gap[~hit].max(initial=0.0)))
+
+
+def latent_leg(project, ae, counters):
+    """run_attack as runner_pipeline's latent-space stage runs it
+    (``--loss_adv_type latent --dist_weight_list 150.0``, into
+    latent_space_attack), cut to 20/10 iterations and one source a class (6
+    pairs), ``--chamfer_impl composed``; then get_dists_per_point and
+    evaluate_attack on it. K1 and K3 must launch. The same run_attack on
+    the host (plain versions; both draw the initial perturbation from the
+    attack's own seeded CPU generator): each class's mean of each metric
+    column within ``LATENT_MEAN_RTOL``. The bar is proven in the same run
+    (``latent_controls``): the card's runs from perturbed sources stay
+    within it of the card's own, and the attack with the planted fault
+    falls outside it against the host's. In the pairs where no critical
+    point parts the card's and the host's clouds, the reconstructions
+    within ``LATENT_CLOUD_ATOL``. Printed: the share of metric and cloud
+    entries within the attack's elementwise bars, card against host and
+    under the perturbations. Returns the leg's counts."""
+    from geometric_adv_tpu_torch.cli import evaluate_attack, get_dists_per_point, run_attack
+
+    sel = f"{ae}/eval/sel_idx_rand_4_test_set_13l.npy"
+    common = ["--project_dir", project, "--ae_folder", ae, "--attack_pc_idx", sel]
+    attack = common + ["--num_pc_for_attack", "1", "--num_pc_for_target", "2",
+                       "--num_iterations", "20", "--num_iterations_thresh", "10",
+                       "--loss_adv_type", "latent", "--dist_weight_list", str(LATENT_WEIGHT),
+                       "--chamfer_impl", "composed"]
+    counts, stages = leg("latent attack", counters, lambda: run_stages([
+        ("run_attack", run_attack.main, attack + [
+            "--device", "cuda", "--output_folder_name", "latent_space_attack"]),
+        ("get_dists_per_point", get_dists_per_point.main, common + [
+            "--device", "cuda", "--attack_folder", "latent_space_attack"]),
+        ("evaluate_attack", evaluate_attack.main, common + [
+            "--output_folder_name", "latent_space_attack"]),
+    ]), ("nn_distance_cuda", "chamfer_grad1_cuda"))
+    t0 = time.time()
+    run_attack.main(attack + ["--device", "cpu", "--output_folder_name",
+                              "latent_space_attack_host"])
+    print(f"latent attack on the host: {time.time() - t0:.2f} s")
+    runs, victim = latent_controls(project, ae, sel)
+    ev = osp.join(project, ae, "eval")
+    worst = {"card against host": 0.0, "perturbed against the card": 0.0,
+             f"fault (weight {LATENT_FAULT_WEIGHT}) against host": 0.0}
+    for c in CLASSES:
+        out = {}
+        for i, name in enumerate(LATENT_ARTIFACTS):
+            card = np.load(osp.join(ev, "latent_space_attack", c, name + ".npy"))
+            host = np.load(osp.join(ev, "latent_space_attack_host", c, name + ".npy"))
+            if card.shape != host.shape or card.shape[:2] != (1, 6):
+                fail(f"latent attack {c}/{name}: shapes {card.shape}, {host.shape}")
+            if not np.isfinite(card).all():
+                fail(f"latent attack {c}/{name}: non-finite values on the card")
+            out[name] = card, host
+            share, big = latent_within(card, host, name)
+            control = [latent_within(p[i], runs[c]["base"][i], name)
+                       for p in runs[c]["perturbed"]]
+            print(f"latent attack {c}/{name}: card against host {share:.4f} of entries "
+                  f"within the attack's bar, the largest {big:.3g} of it; the card's "
+                  f"perturbed sources ({', '.join(n for n, _ in LATENT_PERTURBATIONS)}) "
+                  f"{[(round(sh, 4), float(f'{w:.3g}')) for sh, w in control]}")
+        moved, hit, gap_hit, gap_other = latent_critical_moves(
+            victim, out["adversarial_pc_input"][0][0], out["adversarial_pc_input"][1][0],
+            out["adversarial_pc_recon"][0][0], out["adversarial_pc_recon"][1][0])
+        print(f"latent attack {c}: {moved} points part the card's and the host's clouds "
+              f"beyond {LATENT_CLOUD_ATOL}; {hit} of 6 pairs move a critical point; the "
+              f"largest reconstruction gap {gap_hit:.3g} in those pairs, {gap_other:.3g} "
+              f"in the others")
+        if gap_other > LATENT_CLOUD_ATOL:
+            fail(f"latent attack {c}: reconstructions {gap_other:.3g} apart where no "
+                 f"critical point moved (bar {LATENT_CLOUD_ATOL})")
+        metrics = out["adversarial_metrics"]
+        rel = {"card against host": latent_mean_rel(*metrics),
+               "perturbed against the card": np.max(
+                   [latent_mean_rel(p.metrics, runs[c]["base"].metrics)
+                    for p in runs[c]["perturbed"]], axis=0),
+               f"fault (weight {LATENT_FAULT_WEIGHT}) against host": latent_mean_rel(
+                   runs[c]["fault"].metrics, metrics[1])}
+        for k, v in rel.items():
+            worst[k] = max(worst[k], float(v.max()))
+            print(f"latent attack {c}: class means of the metric columns, {k}, relative "
+                  f"{np.round(v, 7).tolist()} (bar {LATENT_MEAN_RTOL})")
+        if not (rel["card against host"] <= LATENT_MEAN_RTOL).all():
+            fail(f"the latent attack's {c} class means on the card disagree with the "
+                 f"host's: relative {rel['card against host'].tolist()}")
+    print(f"latent attack: the largest class-mean difference of any metric column "
+          f"{ {k: float(f'{v:.4g}') for k, v in worst.items()} } (bar {LATENT_MEAN_RTOL})")
+    if worst["perturbed against the card"] > LATENT_MEAN_RTOL:
+        fail("the latent leg's bar lies inside the card's own noise under perturbed "
+             f"sources: {worst['perturbed against the card']:.4g}")
+    fault = worst[f"fault (weight {LATENT_FAULT_WEIGHT}) against host"]
+    if fault <= LATENT_MEAN_RTOL:
+        fail(f"the latent leg's bar does not see the planted fault (distance weight "
+             f"{LATENT_WEIGHT} -> {LATENT_FAULT_WEIGHT}): {fault:.4g}")
+    stats = open(osp.join(ev, "latent_space_attack/over_classes/eval_stats.txt")).read()
+    if "over classes" not in stats:
+        fail("the latent attack's eval_stats.txt is incomplete")
+    print(f"latent attack (dist weight {LATENT_WEIGHT}, 20/10, 6 pairs a class): stages "
+          f"{({k: round(v[0], 2) for k, v in stages.items()})}")
+    return counts
+
+
+# what an idle stage's process costs before its work: the interpreter, torch's
+# import, the CUDA context, and the rest of cli/common's imports
+STARTUP_PROBE = (
+    "import time; t0 = time.time(); import torch; t1 = time.time(); "
+    "torch.zeros(1, device='cuda'); torch.cuda.synchronize(); t2 = time.time(); "
+    "import geometric_adv_tpu_torch.cli.common; t3 = time.time(); "
+    "print(t0, t1 - t0, t2 - t1, t3 - t2)")
+
+
+def startup_probe():
+    """One process that does nothing but start as a stage starts: -> {part:
+    seconds}, the process's wall among them."""
+    from geometric_adv_tpu_torch import runner_pipeline as rp
+
+    spawned = time.time()
+    out = subprocess.run([sys.executable, "-c", STARTUP_PROBE], env=rp.stage_env(),
+                         capture_output=True, text=True, timeout=300, check=True)
+    wall = time.time() - spawned
+    t0, torch_s, cuda_s, common_s = (float(x) for x in out.stdout.split())
+    parts = {"interpreter": t0 - spawned, "import torch": torch_s,
+             "CUDA context": cuda_s, "rest of cli/common's imports": common_s,
+             "process wall": wall}
+    print(f"idle stage start-up (s): { {k: round(v, 3) for k, v in parts.items()} }")
+    return parts
+
+
+def pipeline_leg():
+    """``python3 -m geometric_adv_tpu_torch.runner_pipeline quick`` in a fresh
+    directory, as a user runs it: every stage's exit code 0 and ``PIPELINE
+    COMPLETE``; ``runner_pipeline.check_artifacts`` (each file a later stage
+    reads, with the JAX stages' shapes); the identity transfer's sanity
+    checks for the four classes; the kernels each stage reported at its
+    exit: K5 in train_ae (512 points: the fused loss), K1 and K3 or K5 in
+    both attacks (their calibration chooses), K2 in the chamfer matrix
+    (prepare_indices_for_attack) and in run_metro. Returns (launches summed
+    over the stages, stage walls)."""
+    from geometric_adv_tpu_torch import runner_pipeline as rp
+
+    shutil.rmtree(PIPELINE_DIR, ignore_errors=True)
+    os.makedirs(PIPELINE_DIR)
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "geometric_adv_tpu_torch.runner_pipeline", "quick"],
+        cwd=PIPELINE_DIR, env=rp.stage_env(), capture_output=True, text=True,
+        timeout=900)
+    wall = time.time() - t0
+    with open(osp.join(PIPELINE_DIR, "runner.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    if proc.returncode != 0 or "PIPELINE COMPLETE" not in proc.stdout:
+        print(proc.stdout[-4000:] + proc.stderr[-4000:])
+        fail(f"runner_pipeline quick exited {proc.returncode}")
+    with open(osp.join(PIPELINE_DIR, rp.STAGES_RECORD)) as f:
+        record = json.load(f)
+    if [r["rc"] for r in record] != [0] * len(rp.STAGES):
+        fail(f"runner_pipeline quick stage exit codes {[r['rc'] for r in record]}")
+    problems = rp.check_artifacts("quick", PIPELINE_DIR)
+    if problems:
+        fail(f"runner_pipeline quick artifacts: {problems[:10]}")
+    sanity = proc.stdout.count("identity sanity checks passed")
+    if sanity != len(CLASSES):
+        fail(f"the identity transfer passed its sanity checks {sanity} times, "
+             f"not once a class ({len(CLASSES)})")
+    launches = {}
+    for r in record:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    by_stage = {}
+    for r in record:
+        by_stage.setdefault(r["module"], []).append(r["launches"])
+
+    def launched(stage, *kernels, index=0):
+        return all(by_stage[stage][index].get(k, 0) > 0 for k in kernels)
+
+    if not launched("train_ae", "chamfer_loss_payloads_cuda"):
+        fail(f"train_ae at 512 points did not launch K5: {by_stage['train_ae']}")
+    for i in (0, 1):
+        if not (launched("run_attack", "nn_distance_cuda", "chamfer_grad1_cuda", index=i)
+                or launched("run_attack", "chamfer_loss_payloads_cuda", index=i)):
+            fail(f"run_attack {i} launched neither K1 and K3 nor K5: "
+                 f"{by_stage['run_attack'][i]}")
+    for stage in ("prepare_indices_for_attack", "run_metro"):
+        if not launched(stage, "nn_distance_values_cuda"):
+            fail(f"{stage} did not launch K2: {by_stage[stage]}")
+    walls = {f"{r['stage']:02d} {r['module']}": round(r["wall_s"], 2) for r in record}
+    startups = [r["startup_s"] for r in record]
+    if any(x is None for x in startups[1:]):  # make_synthetic_data has no cli/common
+        fail(f"runner_pipeline quick: stages without a start-up report {startups}")
+    print(f"runner_pipeline quick: {wall:.2f} s, {len(record)} stages, exit 0, PIPELINE "
+          f"COMPLETE, {len(rp.artifact_contract('quick', 1))} artifacts checked, identity "
+          f"sanity passed for {sanity} classes; stage walls (s) {walls}")
+    print("runner_pipeline quick: launches by stage "
+          f"{ {k: [{n: c for n, c in x.items() if c} for x in v] for k, v in by_stage.items()} }")
+    print("runner_pipeline quick: start-up by stage (s; spawn to the end of cli/common's "
+          f"imports) { {r['stage']: None if x is None else round(x, 2) for r, x in zip(record, startups)} }; "
+          f"sum {sum(x for x in startups if x):.2f} s of {sum(r['wall_s'] for r in record):.2f}")
+    print("runner_pipeline quick: peak device memory by stage (GiB) "
+          f"{ {r['stage']: round((r['peak_device_bytes'] or 0) / 2**30, 3) for r in record} }")
+    return launches, walls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2917,6 +3241,10 @@ def main() -> int:
     del victim
     torch.cuda.synchronize()
 
+    # --- the latent-space attack, as runner_pipeline runs it (K1, K3) ------
+    counts = latent_leg(project, ae, counters)
+    launches = {k: launches[k] + counts[k] for k in launches}
+
     # --- the native PLY loader, the sparse encoder VJP, the precision options,
     # the importers and verify_cuda, on the chamfer victim and its data ------
     from geometric_adv_tpu_torch.cli.common import restore_victim
@@ -3019,6 +3347,11 @@ def main() -> int:
                                                              stages["train_ae"])
     check_artifacts(project, ae, len(CLASSES), n_test, 1024)
     torch.cuda.synchronize()
+
+    # --- the pipeline runner's quick mode, one process a stage ---------------
+    rates["idle stage start-up s"] = startup_probe()
+    counts, rates["runner_pipeline quick stage seconds"] = pipeline_leg()
+    launches = {k: launches[k] + counts.get(k, 0) for k in launches}
 
     for k in ("chamfer_grad1_vpu_cuda", "nn_direction_hier_cuda", "hier_prep_cuda"):
         launches[k] = phase_counts[k]

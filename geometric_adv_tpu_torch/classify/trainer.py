@@ -14,7 +14,8 @@ computed in float32, as the JAX package traces them.
 An epoch runs over device-resident clouds in the order of an on-device
 permutation, each batch jittered by N(0, 0.01) clipped at +-0.05
 (reference: classifier/provider.py:66-77) and given fresh dropout masks, all
-drawn from one generator seeded with the epoch's number. Inference runs in
+drawn from one generator seeded with the epoch's number and ``train``'s
+seed. Inference runs in
 eval mode in batches of 250 clouds and returns int8 argmax labels, the first
 maximum on ties.
 
@@ -125,10 +126,13 @@ class ClassifierTrainer:
         return loss.detach(), acc
 
     def _device_epoch(self, pcs: torch.Tensor, labels: torch.Tensor,
-                      n_batches: int):
+                      n_batches: int, seed: int = 0):
         """One epoch: permutation, jitter and dropout from one generator
-        seeded with the epoch's number; -> (mean loss, mean accuracy)."""
-        gen = torch.Generator(device=self.device).manual_seed(self.epoch + 1)
+        seeded with the epoch's number plus ``seed`` times an odd constant
+        (seed 0: the epoch's number alone; the CPU generator keeps only a
+        seed's low 32 bits); -> (mean loss, mean accuracy)."""
+        gen = torch.Generator(device=self.device).manual_seed(
+            (self.epoch + 1 + seed * 0x9E3779B1) % 2**63)
         bs = self.batch_size
         perm = torch.randperm(pcs.shape[0], generator=gen,
                               device=self.device)[: n_batches * bs]
@@ -146,16 +150,20 @@ class ClassifierTrainer:
             return 0.0, 0.0
         return float(torch.stack(losses).mean()), float(torch.stack(accs).mean())
 
-    def train(self, point_clouds, labels, epochs=150, log_file=None):
+    def train(self, point_clouds, labels, epochs=150, log_file=None, seed=0,
+              eval_data=None):
         """The epoch loop (reference: classifier/train_classifier.py:227-262);
-        -> [(epoch, loss, accuracy, seconds)]."""
+        -> [(epoch, loss, accuracy, seconds)]. ``seed`` picks the epochs'
+        random streams (``_device_epoch``), as the JAX trainer's key does;
+        with ``eval_data`` = (clouds, labels) the accuracy on it is printed
+        every 10 epochs."""
         pcs = torch.as_tensor(np.asarray(point_clouds, np.float32), device=self.device)
         lbl = torch.as_tensor(np.asarray(labels, np.int64), device=self.device)
         n_batches = len(pcs) // self.batch_size
         stats = []
         for _ in range(epochs):
             t0 = time.time()
-            loss, acc = self._device_epoch(pcs, lbl, n_batches)
+            loss, acc = self._device_epoch(pcs, lbl, n_batches, seed)
             self.epoch += 1
             seconds = time.time() - t0
             msg = (f"Classifier epoch {self.epoch:03d}: loss {loss:.4f} acc "
@@ -164,6 +172,10 @@ class ClassifierTrainer:
             if log_file is not None:
                 log_file.write(msg + "\n")
             stats.append((self.epoch, loss, acc, seconds))
+            if eval_data is not None and self.epoch % 10 == 0:
+                ex, ey = eval_data
+                pred = self.classify(ex)
+                print(f"  eval acc: {float((pred == ey).mean()):.4f}")
         return stats
 
     @torch.no_grad()

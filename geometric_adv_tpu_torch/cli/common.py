@@ -17,12 +17,16 @@ from geometric_adv_tpu_torch.data.datasets import create_dir
 from geometric_adv_tpu_torch.parallel import maybe_initialize_from_env
 from geometric_adv_tpu_torch.train.config import Configuration
 from geometric_adv_tpu_torch.utils.artifacts import load_data
+from geometric_adv_tpu_torch.utils.stage_report import report_stage_at_exit
 
 # Multi-process wiring for every pipeline CLI: when the GAT_*/JAX_* variables
 # name a group of several processes, it comes up (gloo, each rank on its
 # card) before any stage touches a device, so that get_mesh() spans it. A
 # no-op otherwise.
 maybe_initialize_from_env()
+# under runner_pipeline: the stage's peak device memory and kernel launches,
+# written at exit
+report_stage_at_exit()
 
 NN_IDX_DICT = {
     "latent_nn": "latent_nn_idx_test_set",

@@ -274,3 +274,37 @@ def test_classify_and_checkpoint_round_trip(tmp_path):
     for k, v in trainer.model.state_dict().items():
         assert torch.equal(other.model.state_dict()[k], v), k
     np.testing.assert_array_equal(other.classify(pcs), trainer.classify(pcs, batch_size=4))
+
+
+def test_train_prints_eval_accuracy_as_jax(capsys):
+    """``train(seed=, eval_data=)``: the eval accuracy line every 10 epochs,
+    equal to the JAX trainer's on bridged weights. The training set is
+    smaller than a batch, so no step runs and both print the accuracy of
+    the same weights at epochs 10 and 20; a seed other than 0 draws
+    another epoch stream."""
+    n, bs = 32, 8
+    jt = JaxTrainer(num_classes=3, num_points=n, batch_size=bs)
+    params, stats = perturbed_variables(JaxCls(num_classes=3), n, seed=4)
+    jt.state = jt.state.replace(params=params, batch_stats=stats)
+    pt = ClassifierTrainer(num_classes=3, batch_size=bs, device="cpu")
+    pt.model.load_state_dict(state_dict_from_flax(params, stats))
+    train_x, train_y = clouds(bs - 1, n, seed=7), np.arange(bs - 1) % 3
+    eval_x = clouds(24, n, seed=8)
+    eval_y = np.asarray(jt.classify(eval_x))
+    eval_y[::3] = (eval_y[::3] + 1) % 3  # an accuracy other than 0 and 1
+
+    def eval_lines(train):
+        train(train_x, train_y, epochs=20, seed=3, eval_data=(eval_x, eval_y))
+        return [ln for ln in capsys.readouterr().out.splitlines() if "eval acc" in ln]
+
+    want = eval_lines(jt.train)
+    assert want == ["  eval acc: 0.6667"] * 2
+    assert eval_lines(pt.train) == want
+
+    def trained(**seed):
+        trainer = ClassifierTrainer(num_classes=3, batch_size=bs, device="cpu")
+        trainer.train(clouds(bs, n, seed=9), np.arange(bs) % 3, epochs=1, **seed)
+        return trainer.model.state_dict()["fc3.weight"]
+
+    assert torch.equal(trained(), trained(seed=0))
+    assert not torch.equal(trained(), trained(seed=5))

@@ -13,7 +13,8 @@ their originals in the JAX package.
    ``run_metro`` and ``import_reference_ckpt --model atlasnet`` with
    ``tst_transfer`` on what it wrote — as on a machine that has no JAX and
    no tensorflow; so do a frozen-assignment attack and the pruned chamfer
-   of ``ops/chamfer_hier.py``, and a plot call raises ImportError.
+   of ``ops/chamfer_hier.py``, the two frozen-run tools (``tools/``) and
+   the pipeline runner's module, and a plot call raises ImportError.
 2. The copies (``attack/pipeline.py``, ``train/config.py`` and the data /
    augmentation / artifact / statistics helpers, and the public helpers no
    stage calls: ``Configuration.copy``, ``exists_and_is_not_none`` and
@@ -58,7 +59,9 @@ for name in ("cli.run_attack", "cli.train_ae", "ops.emd", "ops.cuda.emd",
              "cli.tst_transfer", "cli.run_transfer", "cli.evaluate_transfer",
              "cli.run_metro", "cli.import_reference_ckpt", "cli.verify_cuda",
              "train.import_tf", "train.import_torch", "models.sparse_encode",
-             "native", "parallel", "parallel.mesh", "parallel.distributed"):
+             "native", "parallel", "parallel.mesh", "parallel.distributed",
+             "runner_pipeline", "tools.compare_frozen", "tools.frozen_exact_reeval",
+             "utils.stage_report"):
     assert "geometric_adv_tpu_torch." + name in names, names
 
 import numpy as np
@@ -126,6 +129,12 @@ for defense in ("defense_critical_res", "defense_surface_res"):
     evaluate_defense.main(["--project_dir", d, "--defense_folder", defense] + a)
     m = np.load(f"{d}/{ae}/eval/attack_res/{defense}/sphere/defense_metrics.npy")
     assert m.shape == (1, 8, 4) and np.isfinite(m).all(), m
+# the frozen-run tools, the sparse attack standing in for a frozen one
+from geometric_adv_tpu_torch.tools import compare_frozen, frozen_exact_reeval
+compare_frozen.main(["--project_dir", d, "--ae_folder", ae,
+                     "--frozen_folder", "attack_sparse"])
+frozen_exact_reeval.main(c + a + ["--num_pc_for_attack", "2", "--classes", "sphere",
+                                  "--frozen_folder", "attack_sparse"])
 from geometric_adv_tpu_torch.cli import (
     run_classifier, run_metro, train_classifier, train_transfer)
 # the evaluation models train on a smaller split: 17 clouds a class
