@@ -1141,10 +1141,12 @@ def attack_at_reference_batch(victim, label="exact", pairs=250, iters=20,
         wall_us = (time.time() - t0) * 1e6
     from torch.autograd import DeviceType
 
-    # kernel rows only: an operator's row repeats its kernels' device time
+    # kernel rows only: an operator's row repeats its kernels' device time,
+    # and so does the device row of a span of the program (a user annotation)
     rows = [(e.key, e.self_device_time_total, e.count)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     busy_us = sum(r[1] for r in rows)
     if not rows:
         print("profile: no device time recorded (not measured)")
@@ -1395,7 +1397,8 @@ def device_breakdown(fn, label, top=6):
         fn()
         torch.cuda.synchronize()
     rows = sorted(((e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not getattr(e, "is_user_annotation", False)),
                   key=lambda r: -r[1])
     if not rows:
         print(f"profile of {label}: no device time recorded (not measured)")

@@ -74,11 +74,12 @@ from geometric_adv_tpu_torch.ops.chamfer import (
 )
 from geometric_adv_tpu_torch.ops.emd import emd_loss_fused
 from geometric_adv_tpu_torch.parallel import gather_global, local_rows
+from geometric_adv_tpu_torch.utils.profiling import count, span
 
 # Pairs per attack call when the caller gives none: 1,024,000 point rows
 # (500 pairs at 2048 points), the JAX package's default dispatch size.
-# Autograd keeps the encoder's activations of every row; the peak device
-# memory at this size is not measured yet.
+# Autograd keeps the encoder's activations of every row: the peak device
+# memory at this size is 4.418 GiB on an H100 (the paper's victim).
 MAX_POINT_ROWS = 1_024_000
 
 # The runner's one-shot measurement of the fused against the composed
@@ -342,90 +343,110 @@ def attack_batch(
     shapes [W, B, 5], [W, B, n, 3], [W, B, m, 3].
     """
     _check_refresh(chamfer_refresh, ae_loss_type)
-    if chamfer_refresh:
-        forward = make_frozen_attack_loss(
-            encode, decode, loss_adv_type, loss_dist_type,
-            max_point_pert_weight, max_point_dist_weight,
-        )
-        payload_fn = make_attack_payload_fn(encode, decode)
-    else:
-        forward = make_attack_loss(
-            encode, decode, loss_adv_type, loss_dist_type, ae_loss_type,
-            max_point_pert_weight, max_point_dist_weight, chamfer_method,
-        )
-    device = source_pc.device
-    weights = torch.as_tensor(
-        np.asarray(dist_weights, np.float32), device=device
-    )
     if track_by not in ("t_re", "loss_dist"):
         raise ValueError(f"unknown track_by {track_by!r}")
-    w_count, (b, n, _) = weights.shape[0], source_pc.shape
-    m = target_pc.shape[1]
+    with span("attack.call"):
+        if chamfer_refresh:
+            forward = make_frozen_attack_loss(
+                encode, decode, loss_adv_type, loss_dist_type,
+                max_point_pert_weight, max_point_dist_weight,
+            )
+            payload_fn = make_attack_payload_fn(encode, decode)
+        else:
+            forward = make_attack_loss(
+                encode, decode, loss_adv_type, loss_dist_type, ae_loss_type,
+                max_point_pert_weight, max_point_dist_weight, chamfer_method,
+            )
+        device = source_pc.device
+        weights = torch.as_tensor(
+            np.asarray(dist_weights, np.float32), device=device
+        )
+        w_count, (b, n, _) = weights.shape[0], source_pc.shape
+        m = target_pc.shape[1]
 
-    def fold(t):  # [B, ...] -> [W*B, ...], weight-major like the vmap
-        return t.repeat((w_count,) + (1,) * (t.dim() - 1))
+        def fold(t):  # [B, ...] -> [W*B, ...], weight-major like the vmap
+            return t.repeat((w_count,) + (1,) * (t.dim() - 1))
 
-    x, tz, gt, ref = (fold(t) for t in (
-        source_pc, target_latent, target_pc, target_ae_loss_ref))
-    if weights.dim() == 1:
-        dist_weight = weights.repeat_interleave(b)
-    elif weights.shape == (w_count, b):
-        dist_weight = weights.reshape(-1)
-    else:
-        raise ValueError(f"dist_weights of shape {tuple(weights.shape)} for "
-                         f"{b} pairs")
-    if pert0 is None:
-        pert0 = init_pert((b, n, 3), device)
-    pert = fold(pert0.to(device=device, dtype=torch.float32))
-    m_acc = torch.zeros_like(pert)
-    v_acc = torch.zeros_like(pert)
-    rows = w_count * b
-    best_key = torch.full((rows,), 1e10, device=device)
-    best_metrics = torch.zeros((rows, 4), device=device)
-    best_adv = torch.zeros((rows, n, 3), device=device)
-    best_recon = torch.zeros((rows, m, 3), device=device)
-    thresh = max(num_iterations_thresh, 1)
-    extra = ()
+        x, tz, gt, ref = (fold(t) for t in (
+            source_pc, target_latent, target_pc, target_ae_loss_ref))
+        if weights.dim() == 1:
+            dist_weight = weights.repeat_interleave(b)
+        elif weights.shape == (w_count, b):
+            dist_weight = weights.reshape(-1)
+        else:
+            raise ValueError(f"dist_weights of shape {tuple(weights.shape)} for "
+                             f"{b} pairs")
+        if pert0 is None:
+            pert0 = init_pert((b, n, 3), device)
+        pert = fold(pert0.to(device=device, dtype=torch.float32))
+        m_acc = torch.zeros_like(pert)
+        v_acc = torch.zeros_like(pert)
+        rows = w_count * b
+        best = (torch.full((rows,), 1e10, device=device),  # the key
+                torch.zeros((rows, 4), device=device),  # the other metrics
+                torch.zeros((rows, n, 3), device=device),  # adv
+                torch.zeros((rows, m, 3), device=device))  # recon
+        thresh = max(num_iterations_thresh, 1)
+        extra = ()
 
-    # steps t = 0..num_iterations: step t records the state after t Adam
-    # updates (t = 0 is never recorded since thresh >= 1)
-    for t in range(num_iterations + 1):
-        last = t == num_iterations
-        if chamfer_refresh and t % chamfer_refresh == 0:
-            # a chunk starts: the JAX package's divmod(num_iterations + 1,
-            # chamfer_refresh) chunks, the remainder chunk included, each
-            # refreshed at its entry perturbation; the payloads are
-            # per folded row
-            extra = (payload_fn(pert, x, gt),)
-        pert.requires_grad_(not last)
-        with torch.set_grad_enabled(not last):
-            total, aux = forward(pert, x, tz, gt, dist_weight, *extra)
-            grads = None if last else torch.autograd.grad(total, pert)[0]
-        with torch.no_grad():
-            if t >= thresh:
-                key = aux[track_by]
-                better = key < best_key  # strict <
-                best_key = torch.where(better, key, best_key)
-                metrics = torch.stack(
-                    [aux["loss_adv"], aux["loss_dist"], aux["source_chamfer"],
-                     aux["t_re"] / ref], dim=-1,
-                )
-                best_metrics = torch.where(better[:, None], metrics, best_metrics)
-                best_adv = torch.where(better[:, None, None], aux["adv"], best_adv)
-                best_recon = torch.where(
-                    better[:, None, None], aux["recon"], best_recon
-                )
-            if not last:
-                step, m_acc, v_acc = _tf_adam_update(
-                    grads, m_acc, v_acc, t + 1, learning_rate
-                )
-                pert = pert.detach() - step
+        # steps t = 0..num_iterations: step t records the state after t Adam
+        # updates (t = 0 is never recorded since thresh >= 1)
+        for t in range(num_iterations + 1):
+            with span("attack.iter"):
+                last = t == num_iterations
+                if chamfer_refresh and t % chamfer_refresh == 0:
+                    # a chunk starts: the JAX package's divmod(num_iterations
+                    # + 1, chamfer_refresh) chunks, the remainder chunk
+                    # included, each refreshed at its entry perturbation; the
+                    # payloads are per folded row
+                    with span("attack.refresh"):
+                        extra = (payload_fn(pert, x, gt),)
+                pert.requires_grad_(not last)
+                with torch.set_grad_enabled(not last):
+                    with span("attack.forward"):
+                        total, aux = forward(pert, x, tz, gt, dist_weight, *extra)
+                    if not last:
+                        with span("attack.backward"):
+                            grads = torch.autograd.grad(total, pert)[0]
+                with torch.no_grad():
+                    if t >= thresh:
+                        with span("attack.track"):
+                            best = _track_best(best, aux, track_by, ref)
+                    if not last:
+                        with span("attack.adam"):
+                            step, m_acc, v_acc = _tf_adam_update(
+                                grads, m_acc, v_acc, t + 1, learning_rate
+                            )
+                            pert = pert.detach() - step
 
-    metrics = torch.cat([best_metrics, best_key[:, None]], dim=-1)
-    return AttackOutputs(
-        metrics.reshape(w_count, b, 5).cpu().numpy(),
-        best_adv.reshape(w_count, b, n, 3).cpu().numpy(),
-        best_recon.reshape(w_count, b, m, 3).cpu().numpy(),
+        best_key, best_metrics, best_adv, best_recon = best
+        metrics = torch.cat([best_metrics, best_key[:, None]], dim=-1)
+        outputs = AttackOutputs(
+            metrics.reshape(w_count, b, 5).cpu().numpy(),
+            best_adv.reshape(w_count, b, n, 3).cpu().numpy(),
+            best_recon.reshape(w_count, b, m, 3).cpu().numpy(),
+        )
+    count("attack.pair_iters", rows * num_iterations)
+    if chamfer_refresh:
+        count("attack.refreshes", num_iterations // chamfer_refresh + 1)
+    return outputs
+
+
+def _track_best(best, aux, track_by: str, ref):
+    """The best-so-far update: the rows whose ``track_by`` is strictly
+    below the kept key take this step's (key, metrics, adv, recon)."""
+    best_key, best_metrics, best_adv, best_recon = best
+    key = aux[track_by]
+    better = key < best_key  # strict <
+    metrics = torch.stack(
+        [aux["loss_adv"], aux["loss_dist"], aux["source_chamfer"],
+         aux["t_re"] / ref], dim=-1,
+    )
+    return (
+        torch.where(better, key, best_key),
+        torch.where(better[:, None], metrics, best_metrics),
+        torch.where(better[:, None, None], aux["adv"], best_adv),
+        torch.where(better[:, None, None], aux["recon"], best_recon),
     )
 
 
@@ -622,7 +643,7 @@ class AttackRunner:
 
         outs = []
         for s in range(0, n_examples, batch_size):
-            t0 = time.time()
+            t0 = time.perf_counter()
             sl = slice(s, min(s + batch_size, n_examples))
             out = attack_batch(
                 self.encode, self.decode,
@@ -644,7 +665,7 @@ class AttackRunner:
             # the pair axis of the [W, pairs, ...] outputs
             outs.append(AttackOutputs(*(
                 a[:, :count] for a in gather_global(tuple(out), axis=1))))
-            dur = time.time() - t0
+            dur = time.perf_counter() - t0
             msg = (
                 f"Attack pairs {s}-{sl.stop} of {n_examples}: {dur:.2f}s "
                 f"({conf.num_iterations * count * len(dist_weights) / dur:.0f} "

@@ -19,7 +19,9 @@ rank passes a barrier before it exits. ``attack_impl.json`` records the
 flags' values, and, under port-only keys, the path the encoder's VJP took,
 the batch, the device and the process count.
 ``--trace_dir`` writes a torch.profiler trace of the first class's attack
-on the primary (``utils/profiling.py``)."""
+on the primary (``utils/profiling.py``), with the program's spans in it:
+each attack call and iteration, its forward, backward, Adam step and
+tracking, and the chamfers."""
 
 import argparse
 import contextlib
@@ -100,8 +102,10 @@ def _run(argv):
     )
     parser.add_argument(
         "--trace_dir", type=str, default=None,
-        help="write a torch.profiler trace of the first class's attack "
-        "into this directory (open with ui.perfetto.dev)",
+        help="write a torch.profiler trace of the first class's attack, with "
+        "the program's spans (attack.call, attack.iter, attack.forward, "
+        "attack.backward, attack.adam, attack.track, chamfer.*), into this "
+        "directory (open with ui.perfetto.dev)",
     )
     add_device_flag(parser)
     flags = parser.parse_args(argv)

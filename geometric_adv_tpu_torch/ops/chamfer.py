@@ -21,6 +21,11 @@ an elementwise backward from its payloads), chosen by ``method`` and
 ``FUSED_LOSS_ENABLED``. ``chamfer_frozen_payloads`` serves the attack's
 frozen-assignment mode. ``chamfer_grad1_vpu`` (K4) is an op entry of its
 own, unrouted as in the JAX package.
+
+``nn_distance`` and ``chamfer_loss_per_pc`` open the span
+``chamfer.forward``, and their backwards ``chamfer.backward``
+(``utils/profiling.py``); the per-cloud loss does not go through the public
+``nn_distance``, so the span never holds itself.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from geometric_adv_tpu_torch.ops.cuda import chamfer as _cuda
+from geometric_adv_tpu_torch.utils.profiling import span
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -178,15 +184,16 @@ class _NNDistance(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g1, _gi1, g2, _gi2):
-        xyz1, xyz2, i1, i2 = ctx.saved_tensors
-        grad1 = grad2 = None
-        # only the directions autograd asks for: the attack differentiates
-        # wrt its first argument alone, so grad2 is never computed there
-        if ctx.needs_input_grad[0]:
-            grad1 = chamfer_grad1(xyz1, xyz2, i1, i2, g1, g2)
-        if ctx.needs_input_grad[1]:
-            grad2 = chamfer_grad1(xyz2, xyz1, i2, i1, g2, g1)
-        return grad1, grad2
+        with span("chamfer.backward"):
+            xyz1, xyz2, i1, i2 = ctx.saved_tensors
+            grad1 = grad2 = None
+            # only the directions autograd asks for: the attack differentiates
+            # wrt its first argument alone, so grad2 is never computed there
+            if ctx.needs_input_grad[0]:
+                grad1 = chamfer_grad1(xyz1, xyz2, i1, i2, g1, g2)
+            if ctx.needs_input_grad[1]:
+                grad2 = chamfer_grad1(xyz2, xyz1, i2, i1, g2, g1)
+            return grad1, grad2
 
 
 def nn_distance(xyz1: torch.Tensor, xyz2: torch.Tensor):
@@ -195,7 +202,8 @@ def nn_distance(xyz1: torch.Tensor, xyz2: torch.Tensor):
     Mirrors reference: external/structural_losses/tf_nndistance.py:15.
     Supports arbitrary leading batch dims.
     """
-    return _NNDistance.apply(xyz1, xyz2)
+    with span("chamfer.forward"):
+        return _NNDistance.apply(xyz1, xyz2)
 
 
 def nn_distance_values(xyz1: torch.Tensor, xyz2: torch.Tensor):
@@ -243,21 +251,22 @@ class _ChamferPerPcFused(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x1, x2, i1, i2, nn1, snn1, cnt1 = ctx.saved_tensors
-        n, m = x1.shape[-2], x2.shape[-2]
-        grad1 = grad2 = None
-        if ctx.needs_input_grad[0]:
-            # the reference formula (tf_nndistance.cpp:130-163) with the
-            # per-cloud means' uniform weights folded in
-            grad1 = g[..., None, None] * (
-                (2.0 / n) * (x1 - nn1)
-                + (2.0 / m) * (x1 * cnt1[..., None] - snn1)
-            )
-        if ctx.needs_input_grad[1]:
-            g1v = (g[..., None] / n).expand(x1.shape[:-1])
-            g2v = (g[..., None] / m).expand(x2.shape[:-1])
-            grad2 = chamfer_grad1(x2, x1, i2, i1, g2v, g1v)
-        return grad1, grad2
+        with span("chamfer.backward"):
+            x1, x2, i1, i2, nn1, snn1, cnt1 = ctx.saved_tensors
+            n, m = x1.shape[-2], x2.shape[-2]
+            grad1 = grad2 = None
+            if ctx.needs_input_grad[0]:
+                # the reference formula (tf_nndistance.cpp:130-163) with the
+                # per-cloud means' uniform weights folded in
+                grad1 = g[..., None, None] * (
+                    (2.0 / n) * (x1 - nn1)
+                    + (2.0 / m) * (x1 * cnt1[..., None] - snn1)
+                )
+            if ctx.needs_input_grad[1]:
+                g1v = (g[..., None] / n).expand(x1.shape[:-1])
+                g2v = (g[..., None] / m).expand(x2.shape[:-1])
+                grad2 = chamfer_grad1(x2, x1, i2, i1, g2v, g1v)
+            return grad1, grad2
 
 
 def _takes_fused(pred: torch.Tensor, method: str) -> bool:
@@ -283,13 +292,14 @@ def chamfer_loss_per_pc(pred: torch.Tensor, gt: torch.Tensor,
     A fused call that autograd will not differentiate takes the values-only
     K2, as the JAX primal does; only a differentiated call runs K5.
     """
-    if _takes_fused(pred, method):
-        if torch.is_grad_enabled() and (pred.requires_grad or gt.requires_grad):
-            return _ChamferPerPcFused.apply(pred, gt)
-        d1, d2 = nn_distance_values(pred, gt)
+    with span("chamfer.forward"):
+        if _takes_fused(pred, method):
+            if torch.is_grad_enabled() and (pred.requires_grad or gt.requires_grad):
+                return _ChamferPerPcFused.apply(pred, gt)
+            d1, d2 = nn_distance_values(pred, gt)
+        else:
+            d1, _, d2, _ = _NNDistance.apply(pred, gt)
         return d1.mean(dim=-1) + d2.mean(dim=-1)
-    d1, _, d2, _ = nn_distance(pred, gt)
-    return d1.mean(dim=-1) + d2.mean(dim=-1)
 
 
 @torch.no_grad()

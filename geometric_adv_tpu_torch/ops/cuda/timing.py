@@ -81,7 +81,10 @@ def _device_events(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # a span of the program (``utils/profiling.py``) shows on the device too,
+    # as a user annotation over its kernels: no device operation of its own
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
 
 
 def device_timed(fn, reps: int) -> float:

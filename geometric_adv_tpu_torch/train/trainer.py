@@ -30,6 +30,12 @@ one all-reduce of a flat buffer sums the gradients, with the loss beside
 them, before the same Adam step on every rank. The ranks' states stay
 equal, bit for bit. A batch that does not split evenly over the ranks
 raises ``ValueError``. The primary alone writes checkpoints.
+
+Training opens the spans ``train.epoch``, ``train.batch``, ``train.step``
+and the step's ``train.forward``, ``train.loss``, ``train.backward``,
+``train.allreduce`` (under a mesh) and ``train.optimizer``, and counts
+``train.steps`` and ``train.samples`` (the global batch's rows)
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from geometric_adv_tpu_torch.parallel import (
 )
 from geometric_adv_tpu_torch.train import checkpoint as ckpt
 from geometric_adv_tpu_torch.train.config import Configuration
+from geometric_adv_tpu_torch.utils.profiling import count, span
 
 # Clouds per eval-mode forward of the victim. Each block is zero-padded to
 # this size, so every GEMM of the eval forward runs on rows of one shape
@@ -126,23 +133,29 @@ class AETrainer:
         """One Adam step on the batch, of which ``x`` and ``gt`` are this
         rank's rows; -> (the global batch's mean loss, this rank's recon),
         on the device."""
-        self.model.train()
-        recon, _, _ = self.model(x)
-        per_pc = reconstruction_loss_per_pc(recon, gt, self.conf.loss)
-        self.optimizer.zero_grad(set_to_none=True)
-        if self.mesh is None:
-            loss = per_pc.mean()
-        else:
-            loss = per_pc.sum() / (len(per_pc) * self.mesh.size)
-        loss.backward()
-        if self.mesh is not None:
-            loss = self._all_reduce_grads(loss.detach())
-        lr = self.learning_rate(self._updates_done())
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
-        self.optimizer.step()
-        self.model.eval()
-        return loss.detach(), recon.detach()
+        with span("train.step"):
+            with span("train.forward"):
+                self.model.train()
+                recon, _, _ = self.model(x)
+            with span("train.loss"):
+                per_pc = reconstruction_loss_per_pc(recon, gt, self.conf.loss)
+                if self.mesh is None:
+                    loss = per_pc.mean()
+                else:
+                    loss = per_pc.sum() / (len(per_pc) * self.mesh.size)
+            with span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=True)
+                loss.backward()
+            if self.mesh is not None:
+                with span("train.allreduce"):
+                    loss = self._all_reduce_grads(loss.detach())
+            with span("train.optimizer"):
+                lr = self.learning_rate(self._updates_done())
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+                self.optimizer.step()
+                self.model.eval()
+            return loss.detach(), recon.detach()
 
     def _all_reduce_grads(self, loss: torch.Tensor) -> torch.Tensor:
         """Sum every gradient, and ``loss``, over the ranks in one
@@ -163,6 +176,8 @@ class AETrainer:
         rows = self._rows(len(x))
         loss, recon = self._train_step(torch.as_tensor(x[rows], device=self.device),
                                        torch.as_tensor(gt[rows], device=self.device))
+        count("train.steps")
+        count("train.samples", len(x))
         return gather_global(recon.float()), float(loss)
 
     def _epoch_generator(self, epoch: int) -> torch.Generator:
@@ -182,20 +197,24 @@ class AETrainer:
         augmented = gauss is not None or bool(conf.z_rotate)
         losses = []
         for i in range(n_batches):
-            idx = perm[i * bs:(i + 1) * bs]
-            gt, batch = data[idx], feed[idx]
-            if augmented:
-                batch = device_augment(
-                    batch, gen,
-                    gauss_mu=None if gauss is None else float(gauss["mu"]),
-                    gauss_sigma=None if gauss is None else float(gauss["sigma"]),
-                    z_rotate=bool(conf.z_rotate),
-                )
-                if not conf.is_denoising:
-                    # the augmented batch is its own ground truth
-                    # (reference: src/pointnet_ae.py:123-128)
-                    gt = batch
-            losses.append(self._train_step(batch[rows], gt[rows])[0])
+            with span("train.batch"):
+                idx = perm[i * bs:(i + 1) * bs]
+                gt, batch = data[idx], feed[idx]
+                if augmented:
+                    batch = device_augment(
+                        batch, gen,
+                        gauss_mu=None if gauss is None else float(gauss["mu"]),
+                        gauss_sigma=None if gauss is None else float(gauss["sigma"]),
+                        z_rotate=bool(conf.z_rotate),
+                    )
+                    if not conf.is_denoising:
+                        # the augmented batch is its own ground truth
+                        # (reference: src/pointnet_ae.py:123-128)
+                        gt = batch
+                x, gt = batch[rows], gt[rows]
+            losses.append(self._train_step(x, gt)[0])
+        count("train.steps", n_batches)
+        count("train.samples", n_batches * bs)
         return float(torch.stack(losses).mean()) if losses else 0.0
 
     def _held_out_epoch(self, data, conf):
@@ -203,7 +222,7 @@ class AETrainer:
         (``_single_epoch(..., only_fw=True)``) -> (loss, seconds)."""
         n_batches = data.num_examples // conf.batch_size
         epoch_loss = 0.0
-        start = time.time()
+        start = time.perf_counter()
         for _ in range(n_batches):
             if conf.is_denoising:
                 original, _, batch = data.next_batch(conf.batch_size)
@@ -220,7 +239,7 @@ class AETrainer:
         epoch_loss /= max(n_batches, 1)
         if conf.loss == "emd":
             epoch_loss /= data.n_points  # reference: pointnet_ae.py:135
-        return epoch_loss, time.time() - start
+        return epoch_loss, time.perf_counter() - start
 
     def train(self, train_data, conf=None, log_file=None, held_out_data=None):
         """``conf.training_epochs`` epochs over a ``PointCloudDataSet``;
@@ -243,22 +262,23 @@ class AETrainer:
                 device=self.device)
 
         for _ in range(conf.training_epochs):
-            t0 = time.time()
-            loss = self._device_epoch(data, feed, n_batches, conf)
-            if conf.loss == "emd":
-                loss /= train_data.n_points  # reference: pointnet_ae.py:135
-            duration = time.time() - t0
-            self.epoch += 1
-            epoch = self.epoch
-            stats.append((epoch, loss, duration))
+            with span("train.epoch"):
+                t0 = time.perf_counter()
+                loss = self._device_epoch(data, feed, n_batches, conf)
+                if conf.loss == "emd":
+                    loss /= train_data.n_points  # reference: pointnet_ae.py:135
+                duration = time.perf_counter() - t0
+                self.epoch += 1
+                epoch = self.epoch
+                stats.append((epoch, loss, duration))
 
-            if epoch % conf.loss_display_step == 0:
-                print(f"Epoch: {epoch:04d} training time (minutes)= "
-                      f"{duration / 60.0:.4f} loss= {loss:.9f}")
-                if log_file is not None:
-                    log_file.write(
-                        "%04d\t%.9f\t%.4f\n" % (epoch, loss, duration / 60.0)
-                    )
+                if epoch % conf.loss_display_step == 0:
+                    print(f"Epoch: {epoch:04d} training time (minutes)= "
+                          f"{duration / 60.0:.4f} loss= {loss:.9f}")
+                    if log_file is not None:
+                        log_file.write(
+                            "%04d\t%.9f\t%.4f\n" % (epoch, loss, duration / 60.0)
+                        )
 
             if conf.saver_step is not None and (
                 epoch % conf.saver_step == 0 or epoch == 1

@@ -8,8 +8,10 @@ import (the interpreter, torch and the package modules loaded by then);
 and, if the stage used CUDA, ``peak_device_bytes``, the current device's
 ``torch.cuda.max_memory_allocated()``, and ``launches``, each kernel
 wrapper's launch count (``ops/cuda/``) in the process, for the wrapper
-modules the stage loaded (else ``None`` and ``{}``). Under a process group
-only the primary rank writes. ``runner_pipeline`` sets both variables and
+modules the stage loaded (else ``None`` and ``{}``); and ``counters``, the
+program's counters (``utils/profiling.py``: the attack's pair-iterations
+and refreshes, training's steps and samples). Under a process group only
+the primary rank writes. ``runner_pipeline`` sets both variables and
 reads the file after each stage."""
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ _WRAPPER_MODULES = ("geometric_adv_tpu_torch.ops.cuda.chamfer",
 def _write_report(path: str, startup_s: float | None = None) -> None:
     import torch
 
+    from geometric_adv_tpu_torch.utils.profiling import counters
+
     peak, launches = None, {}
     if torch.cuda.is_initialized():
         peak = torch.cuda.max_memory_allocated()
@@ -37,7 +41,7 @@ def _write_report(path: str, startup_s: float | None = None) -> None:
                 launches.update(sys.modules[name].launch_counts())
     with open(path, "w") as f:
         json.dump({"startup_s": startup_s, "peak_device_bytes": peak,
-                   "launches": launches}, f)
+                   "launches": launches, "counters": counters()}, f)
 
 
 def report_stage_at_exit() -> None:

@@ -254,10 +254,13 @@ def test_frozen_exact_reeval_matches_jax_chamfer(tiny_run, capsys):
 
 def test_stage_report_holds_peak_memory_and_launches(tmp_path, monkeypatch):
     """What a stage writes at exit where CUDA was used: its start-up, peak
-    device memory and the launch counts of the wrapper modules it loaded."""
+    device memory, the launch counts of the wrapper modules it loaded and
+    the program's counters."""
     from geometric_adv_tpu_torch.ops.cuda import chamfer as cu
-    from geometric_adv_tpu_torch.utils import stage_report
+    from geometric_adv_tpu_torch.utils import profiling, stage_report
 
+    monkeypatch.setattr(profiling, "_COUNTS", {})
+    profiling.count("attack.pair_iters", 250_000)
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 12345)
     monkeypatch.setattr(cu.nn_distance_cuda, "launches", 7)
@@ -268,18 +271,21 @@ def test_stage_report_holds_peak_memory_and_launches(tmp_path, monkeypatch):
     assert report["peak_device_bytes"] == 12345
     assert report["launches"]["nn_distance_cuda"] == 7
     assert set(cu.launch_counts()) <= set(report["launches"])
+    assert report["counters"] == {"attack.pair_iters": 250_000}
 
 
-def test_stage_report_without_cuda(tmp_path):
+def test_stage_report_without_cuda(tmp_path, monkeypatch):
     """A stage that never touched CUDA still reports its start-up."""
-    from geometric_adv_tpu_torch.utils import stage_report
+    from geometric_adv_tpu_torch.utils import profiling, stage_report
 
     if torch.cuda.is_initialized():
         pytest.skip("CUDA is initialised in this process")
+    monkeypatch.setattr(profiling, "_COUNTS", {})
     path = tmp_path / "report.json"
     stage_report._write_report(str(path), 1.25)
     assert json.loads(path.read_text()) == {
-        "startup_s": 1.25, "peak_device_bytes": None, "launches": {}}
+        "startup_s": 1.25, "peak_device_bytes": None, "launches": {},
+        "counters": {}}
 
 
 @pytest.mark.parametrize("primary", [True, False])
@@ -315,4 +321,5 @@ def test_runner_records_each_stage_start_up(tmp_path, monkeypatch):
     with open(rp.STAGES_RECORD) as f:
         (r,) = json.load(f)
     assert r["peak_device_bytes"] is None and r["launches"] == {}
+    assert r["counters"] == {}
     assert 0.0 < r["startup_s"] <= r["wall_s"]

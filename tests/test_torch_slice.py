@@ -328,7 +328,7 @@ def test_slice_evaluate_attack_plots_match_jax(slice_dirs, flag, monkeypatch):
 
 def test_slice_run_attack_trace_dir_writes_a_trace(slice_dirs):
     """--trace_dir: a torch.profiler Chrome trace of the first class's
-    attack, with the attack's operators in it."""
+    attack, with the attack's operators and the program's spans in it."""
     import json
 
     from geometric_adv_tpu_torch.cli import run_attack
@@ -345,6 +345,10 @@ def test_slice_run_attack_trace_dir_writes_a_trace(slice_dirs):
     events = json.load(open(osp.join(trace_dir, "trace.json")))["traceEvents"]
     names = {e.get("name", "") for e in events}
     assert "aten::mm" in names or "aten::addmm" in names, sorted(names)[:50]
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert spans.count("attack.call") == 1 and spans.count("attack.iter") == 3
+    assert {"attack.forward", "attack.backward", "attack.adam", "attack.track",
+            "chamfer.forward", "chamfer.backward"} <= set(spans)
     assert osp.exists(osp.join(ev, "attack_res_trace/sphere/adversarial_metrics.npy"))
 
 
