@@ -62,12 +62,21 @@ the script exits non-zero:
      AtlasNet and FoldingNet losses) on tie clouds, K1 bit-equal to its
      plain version, K3 to the host's ascending-j sums; second runs
      bit-equal; each timed beside its bound and plain version;
+   - the fused train-mode batch norm + ReLU (``csrc/bn_relu.cu``, no TPU
+     kernel: XLA fuses flax's BatchNorm) at the victim encoder's five
+     layers, [50 x 2048, C] for C in 64, 128, 128, 256, 128, from ATen's
+     batch moments: y, the statistics and the running statistics bit-equal
+     to the plain version, dx, dweight and dbias within 1e-5 of each one's
+     largest entry, second runs bit-equal; each wrapper's device time over
+     the five layers beside its bytes at the card's memory rate and the
+     plain version's;
 4. the legs through the port's entry points on ``--device cuda``, each
    with the launch counts zeroed just before and read just after:
    - chamfer: ``train_ae --loss chamfer`` (2048 points, 2 epochs), tst_ae,
      prepare_indices_for_attack (all three index kinds), run_attack
      (500/400 iterations, routed by the runner's calibration),
-     get_dists_per_point, evaluate_attack; K1, K2 and K3 must launch;
+     get_dists_per_point, evaluate_attack; K1, K2 and K3 must launch, and
+     the fused batch norm + ReLU's forward and backward (train_ae);
    - defense, on that victim's attack: run_defense_critical (with its
      replay checks), evaluate_defense on its adversarial and clean-source
      results, get_knn_dists_per_point, run_defense_surface,
@@ -252,7 +261,8 @@ import numpy as np
 import torch
 
 from geometric_adv_tpu_torch.cli.verify_cuda import tie_clouds
-from geometric_adv_tpu_torch.ops.cuda.timing import device_timed, sync_timed
+from geometric_adv_tpu_torch.ops.cuda.timing import (
+    BN_ROWS, BN_WIDTHS, FP32_PEAK, FP64_PEAK, HBM_RATE, device_timed, sync_timed)
 
 ROOT = osp.dirname(osp.abspath(__file__))
 WORK = osp.join(ROOT, "build", "chip_smoke")
@@ -293,8 +303,6 @@ CLS_NEAR_TIE = 1e-4
 # time on the device
 EVENT_TIME = "CUDA events per call"
 DEVICE_TIME = "torch.profiler device time per call"
-# published peaks of one H100 SXM (NVIDIA's H100 datasheet), for bounds
-FP32_PEAK, FP64_PEAK, HBM_RATE = 67e12, 34e12, 3.35e12
 CSRC = "geometric_adv_tpu_torch/csrc/"
 PALLAS = "geometric_adv_tpu/ops/pallas/"
 KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
@@ -312,6 +320,10 @@ KERNELS = {  # wrapper: (source, the TPU kernel it replaces)
     "hier_prep_cuda": (CSRC + "nn_hier.cu", PALLAS + "chamfer_hier_kernel.py:104"),
     "emd_sweep_block_cuda": (CSRC + "emd_sweep.cu", PALLAS + "emd_fused_kernel.py:179"),
     "emd_sweep_tiled_cuda": (CSRC + "emd_sweep.cu", PALLAS + "emd_round_kernel.py:268"),
+    # the fused train-mode batch norm + ReLU: the JAX package has none, XLA
+    # fuses flax's BatchNorm (models/layers.py), reached by no pallas_call
+    "bn_relu_forward_cuda": (CSRC + "bn_relu.cu", "none (XLA-fused BatchNorm + relu)"),
+    "bn_relu_backward_cuda": (CSRC + "bn_relu.cu", "none (XLA-fused BatchNorm + relu)"),
 }
 
 
@@ -323,7 +335,17 @@ OWN_KERNELS = {
     "emd_sweep.cu (K6, K7)": ("emd_block_kernel", "tiled_"),
     "nn_hier.cu (K8)": ("hier_kernel",),
     "nn_hier.cu (K8's preparation)": ("hier_prep_kernel",),
+    "bn_relu.cu (train-mode BN + ReLU)": ("bn_relu_forward_kernel", "bn_relu_grad_sums_kernel",
+                                          "bn_relu_dx_kernel"),
 }
+# the fused batch norm + ReLU's backward against its plain version, of each
+# output's largest entry (its sums run in another order); the forward and
+# the running statistics bit-equal
+BN_RELU_REL = 1e-5
+# R x C float passes each wrapper's kernels move at least: the forward reads
+# x and writes y (the batch moments are ATen's, before it); the backward reads
+# dy and x for its two sums, then dy and x again and writes dx
+BN_RELU_PASSES = {"bn_relu_forward_cuda": 2, "bn_relu_backward_cuda": 5}
 
 
 def fail(msg: str):
@@ -859,6 +881,86 @@ def emd_kernel_phase(cu_emd, emd):
             if not all(same):
                 fail(f"K6 and K7 disagree at {shape}: {errs}, bit-equal {same}")
         del x, y, want, outs
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return records
+
+
+def bn_relu_kernel_phase(cu_bn, bn_op):
+    """The fused train-mode batch norm + ReLU's wrappers against their plain
+    versions at the victim encoder's five layers, [50 x 2048, C] for C in
+    BN_WIDTHS, from the batch moments as BatchNorm takes them: y, the
+    statistics and the running statistics bit-equal, dx, dweight and dbias
+    within BN_RELU_REL of each output's largest entry, a second run
+    bit-equal. Each wrapper's device time summed over the five layers (one
+    training step; mean of 20 calls), against its bytes at HBM_RATE
+    (BN_RELU_PASSES) and the plain version's device time."""
+    from geometric_adv_tpu_torch.models.layers import BatchNorm
+
+    records = {name: {"ms": 0.0, "plain_ms": 0.0, "max_abs_err": 0.0, "bound_ms": 0.0,
+                      "ms_by": DEVICE_TIME,
+                      "shape": f"[{BN_ROWS},C] for C in {list(BN_WIDTHS)}, a step"}
+               for name in BN_RELU_PASSES}
+    for layer, c in enumerate(BN_WIDTHS):
+        bn = BatchNorm(c)  # the encoder's eps and momentum
+        rng = np.random.RandomState(400 + layer)
+        x, dy = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+            rng.randn(BN_ROWS, c) * rng.uniform(0.2, 3.0, c) + rng.uniform(-2, 2, c),
+            rng.randn(BN_ROWS, c)))
+        w, b, rm, rv = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+            rng.rand(c) + 0.5, rng.randn(c) * 0.3, rng.randn(c), rng.rand(c) + 0.5))
+        mean, mean_sq = bn_op.batch_moments(x)
+        runs = []
+        for _ in range(2):
+            rm_k, rv_k = rm.clone(), rv.clone()
+            y, stats = cu_bn.bn_relu_forward_cuda(x, mean, mean_sq, w, b, rm_k, rv_k,
+                                                  bn.eps, bn.momentum)
+            runs.append((y, stats, rm_k, rv_k, *cu_bn.bn_relu_backward_cuda(dy, x, w, b, stats)))
+        torch.cuda.synchronize()
+        shape = f"[{BN_ROWS},{c}]"
+        if not all(torch.equal(a, a2) for a, a2 in zip(*runs)):
+            fail(f"bn_relu's second run differs from its first at {shape}")
+        y, stats, rm_k, rv_k, *grads = runs[0]
+        want_y, want_stats = bn_op.bn_relu_forward_plain(x, mean, mean_sq, w, b, bn.eps)
+        want_rm, want_rv = rm.clone(), rv.clone()
+        bn_op.update_running(want_rm, want_stats[0], bn.momentum)
+        bn_op.update_running(want_rv, want_stats[1], bn.momentum)
+        for got, want, name in ((y, want_y, "y"), (stats, want_stats, "stats"),
+                                (rm_k, want_rm, "running mean"), (rv_k, want_rv, "running var")):
+            if not torch.equal(got, want):
+                fail(f"bn_relu_forward_cuda's {name} is not bit-equal to the plain "
+                     f"version's at {shape}")
+        rels = []
+        for got, want, name in zip(grads, bn_op.bn_relu_backward_plain(dy, x, w, b, stats),
+                                   ("dx", "dweight", "dbias")):
+            err = (got - want).abs().max().item()
+            rels.append(err / max(want.abs().max().item(), 1e-30))
+            rec = records["bn_relu_backward_cuda"]
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            if rels[-1] > BN_RELU_REL:
+                fail(f"bn_relu_backward_cuda's {name} differs from the plain version at "
+                     f"{shape}: {rels[-1]:.3g} of its largest entry")
+        print(f"kernel check bn_relu at {shape}: y, stats and the running statistics "
+              f"bit-equal to the plain version; dx, dweight, dbias "
+              f"{[float(f'{r:.3g}') for r in rels]} of their largest entries (tol "
+              f"{BN_RELU_REL}); second run bit-equal")
+        calls = {"bn_relu_forward_cuda": (
+                     lambda: cu_bn.bn_relu_forward_cuda(x, mean, mean_sq, w, b, rm_k, rv_k,
+                                                        bn.eps, bn.momentum),
+                     lambda: bn_op.bn_relu_forward_plain(x, mean, mean_sq, w, b, bn.eps)),
+                 "bn_relu_backward_cuda": (
+                     lambda: cu_bn.bn_relu_backward_cuda(dy, x, w, b, stats),
+                     lambda: bn_op.bn_relu_backward_plain(dy, x, w, b, stats))}
+        for name, (fn, plain) in calls.items():
+            ms, plain_ms = device_timed(fn, 20), device_timed(plain, 20)
+            bound_ms = BN_RELU_PASSES[name] * BN_ROWS * c * 4 / HBM_RATE * 1e3
+            print(f"  {name} at {shape}: kernels {ms:.4f} ms (device), bound "
+                  f"{bound_ms:.4f} ms ({100 * bound_ms / ms:.1f}%), plain {plain_ms:.4f} ms")
+            rec = records[name]
+            rec["ms"] += ms
+            rec["plain_ms"] += plain_ms
+            rec["bound_ms"] += bound_ms
+        del x, dy, runs, grads
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     return records
@@ -1925,6 +2027,8 @@ def mesh_rank(argv) -> int:
     the launch counts zeroed, and writes what it measured to
     OUT/rank<r>.json."""
     from geometric_adv_tpu_torch.cli import common, run_attack
+    from geometric_adv_tpu_torch.ops import bn_relu as bn_op
+    from geometric_adv_tpu_torch.ops.cuda import bn_relu as cu_bn
     from geometric_adv_tpu_torch.ops.cuda import build
     from geometric_adv_tpu_torch.ops.cuda import chamfer as cu
     from geometric_adv_tpu_torch.ops.pairwise import chamfer_distance_matrix
@@ -3031,6 +3135,8 @@ def main() -> int:
     from geometric_adv_tpu_torch.ops import chamfer as ch
     from geometric_adv_tpu_torch.ops import chamfer_hier as hier
     from geometric_adv_tpu_torch.ops import emd
+    from geometric_adv_tpu_torch.ops import bn_relu as bn_op
+    from geometric_adv_tpu_torch.ops.cuda import bn_relu as cu_bn
     from geometric_adv_tpu_torch.ops.cuda import build
     from geometric_adv_tpu_torch.ops.cuda import chamfer as cu
     from geometric_adv_tpu_torch.ops.cuda import emd as cu_emd
@@ -3062,6 +3168,7 @@ def main() -> int:
     phase_counts = cu.launch_counts()
     print(f"kernel phase launches: {phase_counts}")
     records.update(emd_kernel_phase(cu_emd, emd))
+    records.update(bn_relu_kernel_phase(cu_bn, bn_op))
     transfer_kernel_phase(cu, ch, metro, records)
 
     shutil.rmtree(WORK, ignore_errors=True)
@@ -3072,7 +3179,7 @@ def main() -> int:
                            n_per_class=60, n_points=1024, seed=1)
     n_test = 6 * len(CLASSES)  # the 85/5/10 split of 60 clouds: 51/3/6
     n_pairs = len(CLASSES) * 4 * (len(CLASSES) - 1) * 2
-    counters = (cu, cu_emd)
+    counters = (cu, cu_emd, cu_bn)
     launches = dict.fromkeys(KERNELS, 0)
     rates = {}
 
@@ -3084,7 +3191,8 @@ def main() -> int:
     counts, stages = leg("chamfer", counters, lambda: run_stages(
         [train_stage(project, ae, "data/synthetic", N_POINTS, "chamfer", 2)]
         + attack_stages(project, ae, "data/synthetic", (500, 400))),
-        ("nn_distance_cuda", "nn_distance_values_cuda", "chamfer_grad1_cuda"))
+        ("nn_distance_cuda", "nn_distance_values_cuda", "chamfer_grad1_cuda",
+         "bn_relu_forward_cuda", "bn_relu_backward_cuda"))
     launches = {k: launches[k] + counts[k] for k in launches}
     served = {k: datasets.LOADS[k] - loads[k] for k in loads}
     print(f"PLY loads in the chamfer leg by path: {served}")
@@ -3363,19 +3471,25 @@ def main() -> int:
     print("rates: " + json.dumps(rates))
     kernels = []
     for name, rec in records.items():
-        b, n, m = rec.pop("bnm")
-        bound_ms, bound_by, kind = kernel_bound(name, b, n, m, rec.pop("pairs", None),
-                                                rec.pop("zero_share", None))
+        if "bnm" in rec:
+            b, n, m = rec.pop("bnm")
+            bound_ms, bound_by, kind = kernel_bound(name, b, n, m, rec.pop("pairs", None),
+                                                    rec.pop("zero_share", None))
+            shape = f"[{b},{n},3]x[{b},{m},3]"
+        else:  # the fused batch norm + ReLU: its bytes over a step's five layers
+            shape, bound_ms = rec.pop("shape"), rec.pop("bound_ms")
+            bound_by = kind = "bytes"
         rec.setdefault("ms_by", EVENT_TIME)
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
             "replaces": KERNELS[name][1], "launches": launches[name],
-            "shape": f"[{b},{n},3]x[{b},{m},3]", "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": shape, "bound_ms": bound_ms, "bound_by": bound_by,
             "bound_type": kind, "library_ms": None, **rec})
-        print(f"kernel {name} at [{b},{n},3]x[{b},{m},3]: {rec['ms']:.4f} ms "
+        print(f"kernel {name} at {shape}: {rec['ms']:.4f} ms "
               f"({rec['ms_by']}), bound "
               f"{bound_ms:.4f} ms ({kind}), {100 * bound_ms / rec['ms']:.1f}% of the bound; "
-              f"{launches[name]} launches over the legs")
+              + (f"plain {rec['plain_ms']:.4f} ms; " if "plain_ms" in rec else "")
+              + f"{launches[name]} launches over the legs")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -25,6 +25,13 @@ trainer calls), each rank holds its rows of the batch and train mode takes
 the statistics over the global batch, as GSPMD does for flax's batch norm on
 a batch-sharded array: one differentiable all-reduce sums every rank's
 ``sum(x)`` and ``sum(x*x)``, and both divide by the global count.
+
+``PointMLP`` runs each layer's batch norm and the ReLU after it through
+``bn_relu``: in train mode, on one process, at float32, on a CUDA input it
+is one op with hand-written kernels (``ops/bn_relu.py``: the
+batch moments as here, then one launch forward and two backward), equal
+to the composed version bit for bit forward; everywhere else it is
+``torch.relu(bn(x))``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
+from geometric_adv_tpu_torch.ops.bn_relu import batch_moments, bn_relu_train, update_running
 from geometric_adv_tpu_torch.parallel.distributed import differentiable_all_reduce_sum
 
 
@@ -103,19 +111,18 @@ class BatchNorm(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            axes = tuple(range(x.dim() - 1))
             if self.mesh is None:
-                mean, mean_sq = x.mean(dim=axes), (x * x).mean(dim=axes)
+                mean, mean_sq = batch_moments(x)
             else:
+                axes = tuple(range(x.dim() - 1))
                 sums = differentiable_all_reduce_sum(
                     torch.cat([x.sum(dim=axes), (x * x).sum(dim=axes)]), self.mesh)
                 count = x.numel() // x.shape[-1] * self.mesh.size
                 mean, mean_sq = (sums / count).chunk(2)
             var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
-                keep = self.momentum
-                self.running_mean.copy_(keep * self.running_mean + (1 - keep) * mean)
-                self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
+                update_running(self.running_mean, mean, self.momentum)
+                update_running(self.running_var, var, self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
 
@@ -128,6 +135,24 @@ def set_batch_norm_mesh(model: nn.Module, mesh) -> None:
     for module in model.modules():
         if isinstance(module, BatchNorm):
             module.mesh = mesh
+
+
+def takes_fused_bn_relu(bn: BatchNorm, x: torch.Tensor) -> bool:
+    """Whether ``bn_relu`` runs the fused op: ``bn`` in train mode, on one
+    process (no mesh), computing in float32, and ``x`` a float32 CUDA
+    tensor."""
+    return (bn.training and bn.mesh is None and bn.dtype == torch.float32
+            and x.device.type == "cuda" and x.dtype == torch.float32)
+
+
+def bn_relu(bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """``torch.relu(bn(x))``, through the fused train-mode op
+    (``ops/bn_relu.py``, on a contiguous copy of a strided ``x``; an empty
+    ``x`` raises there) where ``takes_fused_bn_relu`` holds."""
+    if takes_fused_bn_relu(bn, x):
+        return bn_relu_train(x.contiguous(), bn.weight, bn.bias, bn.running_mean,
+                             bn.running_var, bn.eps, bn.momentum)
+    return torch.relu(bn(x))
 
 
 class PointMLP(nn.Module):
@@ -147,7 +172,7 @@ class PointMLP(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers):
             x = getattr(self, f"conv_{i}")(x)
-            x = torch.relu(getattr(self, f"bn_{i}")(x))
+            x = bn_relu(getattr(self, f"bn_{i}"), x)
         return x
 
 

@@ -13,7 +13,8 @@ The wrapper modules share the checks here: ``ops/cuda/chamfer.py`` (K1 K2
 ``nn_distance[_values]_cuda``, K3 ``chamfer_grad1_cuda``, K4
 ``chamfer_grad1_vpu_cuda``, K5 ``chamfer_loss_payloads_cuda``, K8
 ``nn_direction_hier_cuda`` and its preparation ``hier_prep_cuda``) and
-``ops/cuda/emd.py`` (K6, K7). Each wrapper checks device, dtype, shape and
+``ops/cuda/emd.py`` (K6, K7) and ``ops/cuda/bn_relu.py`` (the fused train-mode
+batch norm + ReLU). Each wrapper checks device, dtype, shape and
 contiguity and raises on anything else, allocates its outputs with
 ``torch.empty``, launches on the current CUDA stream without synchronising,
 raises if a launch was refused, and counts its launches. There is no fallback: a CPU tensor, a failed build or a refused
@@ -40,7 +41,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_p, _i, _l, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_float
 _fp = ctypes.POINTER(ctypes.c_float)
 # argtypes of every C entry point; all return a cudaError_t as int
 SIGNATURES = {
@@ -59,6 +60,10 @@ SIGNATURES = {
     "gat_emd_sweep_tiled": [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _f, _f,
                             _fp, _i, _p, _p],
     "gat_emd_numerics_scan": [_p, _p],
+    "gat_bn_relu_forward": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _i, _i, _f, _f, _f, _i,
+                            _i, _p],
+    "gat_bn_relu_backward": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _l, _p, _i, _i, _i,
+                             _i, _i, _p],
 }
 
 _lock = threading.Lock()

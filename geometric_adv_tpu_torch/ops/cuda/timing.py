@@ -1,7 +1,9 @@
-"""Timers for the hand-written kernels, and a command that times K3-K7 and
-the pruned chamfer op alone and keeps their outputs.
+"""Timers for the hand-written kernels, and a command that times K3-K7, the
+pruned chamfer op and the fused batch norm + ReLU alone and keeps their
+outputs.
 
-``sync_timed`` and ``device_timed`` serve ``chip_smoke.py`` too. The
+``sync_timed``, ``device_timed`` and the card's peaks (``FP32_PEAK``,
+``FP64_PEAK``, ``HBM_RATE``) serve ``chip_smoke.py`` too. The
 command, on one card:
 
     python3 -m geometric_adv_tpu_torch.ops.cuda.timing --label NAME [--out DIR]
@@ -21,7 +23,15 @@ times, on inputs from fixed numpy seeds (uniform clouds in [-0.5, 0.5)^3):
   at [64] x 2048^2 on the synthetic dataset's surface clouds (sphere, cube,
   torus, cone) and on uniform clouds, 20 calls, with the device time of
   each of the port's kernels it launches (``kernels_ms``, by name) and its
-  kernel launches per call (``launches``).
+  kernel launches per call (``launches``);
+- the fused train-mode batch norm + ReLU (``ops/cuda/bn_relu.py``) at each
+  of the victim encoder's five layers, [50 x 2048, C] for C in 64, 128,
+  128, 256, 128: its forward (ATen's batch moments, then the fused pass)
+  and its backward call (the gradient sums and the dx pass), 20 calls each,
+  with each kernel's device time and the call's byte bound at 3.35 TB/s
+  (``bound_ms``: 3 passes of R x C floats forward, 5 backward) and the
+  plain version's time (``plain_ms``), then the five layers' sum against
+  the step's bound.
 
 Each time is given twice, per call after a warm-up: ``ms`` from CUDA events
 around the calls, which counts the wrapper's host time where that is longer
@@ -53,6 +63,11 @@ EMD_BATCHES = (24, 50)
 EMD_SWEEPS = (("K6", 1024), ("K7", 1024), ("K7", N))
 HIER_BATCH = 64
 SHAPES = ("sphere", "cube", "torus", "cone")
+BN_WIDTHS = (64, 128, 128, 256, 128)  # the victim encoder's layers
+BN_ROWS = 50 * N  # its training batch: 50 clouds of 2048 points
+BN_PASSES = {"forward": 3, "backward": 5}  # R x C float passes a call moves
+# published peaks of one H100 SXM (NVIDIA's H100 datasheet), for bounds
+FP32_PEAK, FP64_PEAK, HBM_RATE = 67e12, 34e12, 3.35e12
 
 
 def sync_timed(fn, reps: int) -> float:
@@ -176,6 +191,46 @@ def time_hier(label: str) -> dict:
     return outputs
 
 
+def time_bn_relu(label: str) -> dict:
+    """Time the fused batch norm + ReLU's calls at the encoder's widths (one
+    JSON line each, then the step's sum); returns their outputs."""
+    from geometric_adv_tpu_torch.ops import bn_relu as bn_op
+    from geometric_adv_tpu_torch.ops.cuda import bn_relu as cu_bn
+
+    outputs, device_ms, bound_ms, plain_device_ms = {}, 0.0, 0.0, 0.0
+    for layer, c in enumerate(BN_WIDTHS):
+        rng = np.random.RandomState(300 + layer)
+        x, dy = (torch.from_numpy(a.astype(np.float32)).cuda() for a in (
+            rng.randn(BN_ROWS, c) * rng.uniform(0.2, 3.0, c) + rng.uniform(-2, 2, c),
+            rng.randn(BN_ROWS, c)))
+        w, b = (torch.from_numpy(a.astype(np.float32)).cuda()
+                for a in (rng.rand(c) + 0.5, rng.randn(c) * 0.3))
+        rm, rv = torch.zeros(c, device="cuda"), torch.ones(c, device="cuda")
+        y, stats = cu_bn.bn_relu_forward_cuda(x, *bn_op.batch_moments(x), w, b, rm, rv,
+                                              1e-5, 0.9)
+        outputs[f"bn_relu layer {layer} [{BN_ROWS}, {c}]"] = [
+            t.cpu() for t in (y, stats, rm, rv, *cu_bn.bn_relu_backward_cuda(dy, x, w, b, stats))]
+        calls = {"forward": (lambda: cu_bn.bn_relu_forward_cuda(x, *bn_op.batch_moments(x), w, b,
+                                                                rm, rv, 1e-5, 0.9),
+                             lambda: bn_op.bn_relu_forward_plain(x, *bn_op.batch_moments(x), w,
+                                                                 b, 1e-5)),
+                 "backward": (lambda: cu_bn.bn_relu_backward_cuda(dy, x, w, b, stats),
+                              lambda: bn_op.bn_relu_backward_plain(dy, x, w, b, stats))}
+        for name, (fn, plain) in calls.items():
+            kernels, launches = device_kernels(fn, 20)
+            bound = BN_PASSES[name] * BN_ROWS * c * 4 / HBM_RATE * 1e3
+            device_ms += sum(kernels.values())
+            bound_ms += bound
+            plain_device_ms += device_timed(plain, 20)
+            _emit(label=label, op=f"bn_relu_{name}", layer=layer, rows=BN_ROWS, c=c,
+                  ms=sync_timed(fn, 20), device_ms=sum(kernels.values()), bound_ms=bound,
+                  launches=launches, kernels_ms=kernels, plain_ms=sync_timed(plain, 20))
+    _emit(label=label, op="bn_relu step", layers=len(BN_WIDTHS), device_ms=device_ms,
+          bound_ms=bound_ms, bound_share=bound_ms / device_ms,
+          plain_device_ms=plain_device_ms)
+    return outputs
+
+
 def compare(a: Path, b: Path) -> bool:
     """One JSON line per output of two saved runs; True if all bit-equal."""
     x, y = torch.load(a), torch.load(b)
@@ -209,6 +264,7 @@ def main() -> int:
     _emit(label=args.label, card=card)
     outputs = time_kernels(args.label)
     outputs.update(time_hier(args.label))
+    outputs.update(time_bn_relu(args.label))
     args.out.mkdir(parents=True, exist_ok=True)
     torch.save(outputs, args.out / f"{args.label}.pt")
     return 0

@@ -25,7 +25,8 @@ import time
 STAGE_REPORT_ENV = "GAT_STAGE_REPORT"
 STAGE_SPAWNED_ENV = "GAT_STAGE_SPAWNED"
 _WRAPPER_MODULES = ("geometric_adv_tpu_torch.ops.cuda.chamfer",
-                    "geometric_adv_tpu_torch.ops.cuda.emd")
+                    "geometric_adv_tpu_torch.ops.cuda.emd",
+                    "geometric_adv_tpu_torch.ops.cuda.bn_relu")
 
 
 def _write_report(path: str, startup_s: float | None = None) -> None:

@@ -740,3 +740,141 @@ def test_matmul_precision_sets_tf32_on_card(cuda):
             assert torch.backends.cudnn.allow_tf32 is tf32
     finally:
         common.resolve_device("cuda")
+
+
+# The fused train-mode batch norm + ReLU (csrc/bn_relu.cu) against its plain
+# version (ops/bn_relu.py). The forward takes ATen's batch moments, as the
+# composed BatchNorm does, and then the same IEEE operations: y, stats and
+# the running statistics bit for bit. The backward's sums run in another
+# order than the plain version's: bar 1e-5 of each output's largest entry
+# (both form the same ReLU mask from the same statistics).
+BN_RELU_REL = 1e-5
+BN_RELU_KERNELS = ("bn_relu_forward_kernel", "bn_relu_grad_sums_kernel", "bn_relu_dx_kernel")
+
+
+def bn_relu_inputs(cuda, b, n, c, seed, offset=0):
+    """x [b*n, c] as a Dense layer's outputs (channel offsets and scales),
+    weight, bias, running statistics and dy; ``offset`` floats into a
+    buffer, so that x is contiguous but not 16-byte aligned."""
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(b * n, c) * rng.uniform(0.2, 3.0, c) + rng.uniform(-2, 2, c)).astype(np.float32)
+    buf = torch.empty(offset + x.size, device=cuda)
+    xs = buf[offset:].view(b * n, c)
+    xs.copy_(torch.from_numpy(x))
+    params = [torch.from_numpy(v.astype(np.float32)).to(cuda) for v in (
+        rng.rand(c) + 0.5, rng.randn(c) * 0.3, rng.randn(c), rng.rand(c) + 0.5)]
+    dy = torch.from_numpy(rng.randn(b * n, c).astype(np.float32)).to(cuda)
+    return xs, params, dy
+
+
+def assert_rel(got, want, name):
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    assert err <= BN_RELU_REL, f"{name}: {err:.3g} of its largest entry"
+
+
+@pytest.mark.parametrize("b,n,c,offset", [(50, 2048, 64, 0), (50, 2048, 128, 0),
+                                          (50, 2048, 256, 0), (7, 301, 37, 0),
+                                          (3, 333, 96, 0), (2, 517, 64, 1), (1, 3, 5, 0),
+                                          (4, 1000, 1100, 0)])
+def test_bn_relu_kernels_match_the_plain_version(cuda, b, n, c, offset):
+    """y, the statistics, the running statistics (against the plain and
+    the composed versions), dx, dweight and dbias at the encoder's widths,
+    an odd C, rows that fill no block, an x that takes the one-channel
+    columns, a C of more than 32 column chunks; a second run bit-equal to
+    the first."""
+    from geometric_adv_tpu_torch.models.layers import BatchNorm
+    from geometric_adv_tpu_torch.ops import bn_relu as op
+    from geometric_adv_tpu_torch.ops.cuda import bn_relu as cu_bn
+
+    x, (w, bias, rm, rv), dy = bn_relu_inputs(cuda, b, n, c, seed=c + n, offset=offset)
+    mean, mean_sq = op.batch_moments(x)
+    runs = []
+    for _ in range(2):
+        rm_k, rv_k = rm.clone(), rv.clone()
+        y, stats = cu_bn.bn_relu_forward_cuda(x, mean, mean_sq, w, bias, rm_k, rv_k, 1e-5, 0.9)
+        grads = cu_bn.bn_relu_backward_cuda(dy, x, w, bias, stats)
+        runs.append((y, stats, rm_k, rv_k, *grads))
+    for got, again in zip(*runs):
+        assert torch.equal(got, again)
+    y, stats, rm_k, rv_k, dx, dw, db = runs[0]
+    want_y, want_stats = op.bn_relu_forward_plain(x, mean, mean_sq, w, bias, 1e-5)
+    assert torch.equal(y, want_y)
+    assert torch.equal(stats, want_stats)
+    assert torch.equal(rm_k, 0.9 * rm + (1 - 0.9) * mean)
+    assert torch.equal(rv_k, 0.9 * rv + (1 - 0.9) * want_stats[1])
+    bn = BatchNorm(c).to(cuda).train()
+    with torch.no_grad():
+        for t, v in ((bn.weight, w), (bn.bias, bias), (bn.running_mean, rm),
+                     (bn.running_var, rv)):
+            t.copy_(v)
+        assert torch.equal(torch.relu(bn(x)), y)  # the composed version
+    assert torch.equal(bn.running_mean, rm_k) and torch.equal(bn.running_var, rv_k)
+    for got, want, name in zip((dx, dw, db),
+                               op.bn_relu_backward_plain(dy, x, w, bias, stats),
+                               ("dx", "dweight", "dbias")):
+        assert_rel(got, want, name)
+
+
+def test_bn_relu_launches_its_kernels_once_a_layer_a_step(cuda):
+    """A train-mode PointMLP step: one forward and one backward call of the
+    wrappers a layer, and each of the three kernels once a layer on the
+    device (with ATen's x*x and two means, six launches a layer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from geometric_adv_tpu_torch.models.layers import PointMLP
+    from geometric_adv_tpu_torch.ops.cuda import bn_relu as cu_bn
+
+    widths = [64, 128, 128, 256, 128]
+    mlp = PointMLP(3, widths).to(cuda).train()
+    x = torch.randn(8, 2048, 3, device=cuda)
+    mlp(x).sum().backward()  # builds and warms up
+    cu_bn.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mlp(x).sum().backward()
+        torch.cuda.synchronize()
+    assert cu_bn.launch_counts() == {"bn_relu_forward_cuda": len(widths),
+                                     "bn_relu_backward_cuda": len(widths)}
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for kernel in BN_RELU_KERNELS:
+        assert sum(kernel in nm for nm in names) == len(widths), kernel
+
+
+def test_ae_trainer_steps_fused_against_composed(cuda, monkeypatch):
+    """Three AETrainer steps at 2048 points through the fused op and through
+    the composed one: the losses within 1e-5, each parameter's first
+    gradient within 3e-4 of its norm (the benchmark's ``grad_gap`` limit)
+    and the running variances within 1e-5. The encoder's dense biases are
+    left out: the batch norm after each cancels them, so their true
+    gradient is 0 (tests/test_torch_train.py). Parameters after the steps
+    are not compared elementwise: Adam's first steps move each entry by
+    about lr times the sign of its gradient, so an entry whose gradient is
+    near 0 moves by up to 2 lr between any two roundings."""
+    from geometric_adv_tpu_torch.models import layers
+    from geometric_adv_tpu_torch.ops.cuda import bn_relu as cu_bn
+    from geometric_adv_tpu_torch.train.config import Configuration
+    from geometric_adv_tpu_torch.train.trainer import AETrainer
+
+    rng = np.random.RandomState(5)
+    batches = [rng.rand(16, 2048, 3).astype(np.float32) - 0.5 for _ in range(3)]
+    runs = {}
+    for route in ("fused", "composed"):
+        if route == "composed":
+            monkeypatch.setattr(layers, "takes_fused_bn_relu", lambda bn, x: False)
+        conf = Configuration(n_input=[2048, 3], loss="chamfer", batch_size=16,
+                             learning_rate=5e-4, saver_step=None, held_out_step=None)
+        trainer = AETrainer(conf, cuda)
+        cu_bn.reset_launch_counts()
+        losses = [trainer.partial_fit(batches[0])[1]]
+        grads = {k: p.grad.clone() for k, p in trainer.model.named_parameters()}
+        losses += [trainer.partial_fit(x)[1] for x in batches[1:]]
+        assert cu_bn.bn_relu_forward_cuda.launches == (15 if route == "fused" else 0)
+        runs[route] = (losses, grads, trainer.model.state_dict())
+    (lf, gf, sf), (lc, gc, sc) = runs["fused"], runs["composed"]
+    np.testing.assert_allclose(lf, lc, rtol=1e-5)
+    for name, g in gc.items():
+        if not (name.startswith("encoder.conv_") and name.endswith(".bias")):
+            gap = float((gf[name] - g).norm() / g.norm())
+            assert gap <= 3e-4, f"{name}: {gap:.3g}"
+    for name, v in sc.items():
+        if name.endswith("running_var"):
+            assert_rel(sf[name], v, name)
