@@ -32,6 +32,14 @@ is one op with hand-written kernels (``ops/bn_relu.py``: the
 batch moments as here, then one launch forward and two backward), equal
 to the composed version bit for bit forward; everywhere else it is
 ``torch.relu(bn(x))``.
+
+``PointMLP`` and ``FCStack``, the victim's encoder and decoder, replay
+their train-mode step as CUDA graphs where ``takes_body_graph`` holds
+(``models/body_graph.py``): in train mode with grad enabled, on a
+contiguous float32 CUDA input, on one process (no mesh), every layer at
+float32 (the encoder's every batch norm on the fused route), no hook on a
+layer. Everywhere else, and for a key's first two sightings, they run the
+layers eager.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from collections.abc import Sequence
 import torch
 from torch import nn
 
+from geometric_adv_tpu_torch.models.body_graph import BodyGraphs
 from geometric_adv_tpu_torch.ops.bn_relu import batch_moments, bn_relu_train, update_running
 from geometric_adv_tpu_torch.parallel.distributed import differentiable_all_reduce_sum
 
@@ -130,10 +139,11 @@ class BatchNorm(nn.Module):
 def set_batch_norm_mesh(model: nn.Module, mesh) -> None:
     """Make every ``BatchNorm`` of ``model`` take its train-mode statistics
     over ``mesh``'s global batch (None, or a mesh of one process: the
-    rank's own batch)."""
+    rank's own batch), and every ``PointMLP`` and ``FCStack`` know it runs
+    under the mesh (its step then stays eager)."""
     mesh = mesh if mesh is not None and mesh.size > 1 else None
     for module in model.modules():
-        if isinstance(module, BatchNorm):
+        if isinstance(module, (BatchNorm, PointMLP, FCStack)):
             module.mesh = mesh
 
 
@@ -143,6 +153,33 @@ def takes_fused_bn_relu(bn: BatchNorm, x: torch.Tensor) -> bool:
     tensor."""
     return (bn.training and bn.mesh is None and bn.dtype == torch.float32
             and x.device.type == "cuda" and x.dtype == torch.float32)
+
+
+def _global_hooks() -> bool:
+    """Whether a global module hook is set (the hooks that ``nn.Module``'s
+    call checks besides a module's own)."""
+    from torch.nn.modules import module as nn_module
+
+    return bool(nn_module._global_forward_hooks or nn_module._global_forward_pre_hooks
+                or nn_module._global_backward_hooks
+                or nn_module._global_backward_pre_hooks)
+
+
+def takes_body_graph(module: nn.Module, x: torch.Tensor) -> bool:
+    """Whether ``module`` (a ``PointMLP`` or an ``FCStack``) replays its
+    step as CUDA graphs (``models/body_graph.py``) on ``x``: train mode,
+    grad enabled, ``x`` a contiguous float32 CUDA tensor, no mesh, every
+    layer at float32, every batch norm on the fused route, and no hook that
+    would run on a layer (a replay runs none)."""
+    if not (module.training and torch.is_grad_enabled() and x.device.type == "cuda"
+            and x.dtype == torch.float32 and x.is_contiguous() and module.mesh is None
+            and not _global_hooks()):
+        return False
+    return all(layer.dtype == torch.float32
+               and not (layer._forward_hooks or layer._forward_pre_hooks
+                        or layer._backward_hooks or layer._backward_pre_hooks)
+               and (not isinstance(layer, BatchNorm) or takes_fused_bn_relu(layer, x))
+               for layer in module.children())
 
 
 def bn_relu(bn: BatchNorm, x: torch.Tensor) -> torch.Tensor:
@@ -168,8 +205,17 @@ class PointMLP(nn.Module):
             self.add_module(f"bn_{i}", BatchNorm(width, momentum=bn_momentum,
                                                  dtype=dtype))
             in_features = width
+        self.mesh = None  # set by set_batch_norm_mesh
+        self.graphs = BodyGraphs(counted=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if takes_body_graph(self, x):
+            return self.graphs.call(self, self.layers, x, tuple(
+                (bn.eps, bn.momentum) for bn in self.children() if isinstance(bn, BatchNorm)))
+        return self.layers(x)
+
+    def layers(self, x: torch.Tensor) -> torch.Tensor:
+        """The eager forward."""
         for i in range(self.n_layers):
             x = getattr(self, f"conv_{i}")(x)
             x = bn_relu(getattr(self, f"bn_{i}"), x)
@@ -227,8 +273,16 @@ class FCStack(nn.Module):
         for i, width in enumerate(features):
             self.add_module(f"fc_{i}", Dense(in_features, width, dtype))
             in_features = width
+        self.mesh = None  # set by set_batch_norm_mesh
+        self.graphs = BodyGraphs()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if takes_body_graph(self, x):
+            return self.graphs.call(self, self.layers, x)
+        return self.layers(x)
+
+    def layers(self, x: torch.Tensor) -> torch.Tensor:
+        """The eager forward."""
         for i in range(self.n_layers):
             x = getattr(self, f"fc_{i}")(x)
             if i < self.n_layers - 1:

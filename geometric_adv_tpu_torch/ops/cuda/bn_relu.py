@@ -15,7 +15,9 @@ one to its ``launches`` count per call (the backward's is two kernel
 launches). The backward keeps its scratch per device (``_scratch``): the sums
 launch's partial rows, the counters on which their last blocks meet
 (zeroed once, left at 0 by every launch) and the backward's coefficients
-of dx; so calls run one after another on one stream.
+of dx; so calls run one after another on one stream. Scratch outgrown by a
+larger call is kept, not freed: a CUDA graph captured over the backward
+(``models/body_graph.py``) holds its pointers.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ STATS = ("mean", "var", "r", "a", "flag")  # the rows of ``stats``
 _LANES = 8  # columns a block covers (kLanes in csrc/bn_relu.cu)
 _SUMS_BLOCKS_PER_SM = 4  # kSumsBlocksPerSm
 _scratch_by_device: dict[torch.device, tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+_outgrown: list = []  # scratch a larger call replaced, kept for the graphs that hold it
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,6 +58,8 @@ def _scratch(device: torch.device, c: int, vec: int):
     have = _scratch_by_device.get(device)
     if have is None or have[0].numel() < cap or have[1].numel() < chunks \
             or have[2].numel() < 2 * c:
+        if have is not None:
+            _outgrown.append(have)
         have = (torch.empty(cap, dtype=torch.float64, device=device),
                 torch.zeros(max(chunks, 256), dtype=torch.int32, device=device),
                 torch.empty(2 * c, dtype=torch.float32, device=device))

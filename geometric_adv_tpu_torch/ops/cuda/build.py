@@ -182,9 +182,14 @@ def cloud_sizes(xyz1: torch.Tensor, xyz2: torch.Tensor) -> tuple[int, int, int]:
     return b, n, m
 
 
+COUNTED: list = []  # every counted wrapper of the modules imported so far
+
+
 def counted(fn):
-    """Give a wrapper its launch count (a plain int attribute)."""
+    """Give a wrapper its launch count (a plain int attribute) and list it
+    in ``COUNTED``."""
     fn.launches = 0
+    COUNTED.append(fn)
     return fn
 
 

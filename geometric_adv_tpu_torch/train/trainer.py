@@ -132,10 +132,13 @@ class AETrainer:
     def _train_step(self, x: torch.Tensor, gt: torch.Tensor):
         """One Adam step on the batch, of which ``x`` and ``gt`` are this
         rank's rows; -> (the global batch's mean loss, this rank's recon),
-        on the device."""
+        on the device. It leaves the model in train mode: its callers put it
+        back in eval mode after a run of steps, so that the walk over every
+        module each way comes once a run, not twice a step."""
         with span("train.step"):
             with span("train.forward"):
-                self.model.train()
+                if not self.model.training:
+                    self.model.train()
                 recon, _, _ = self.model(x)
             with span("train.loss"):
                 per_pc = reconstruction_loss_per_pc(recon, gt, self.conf.loss)
@@ -154,7 +157,6 @@ class AETrainer:
                 for group in self.optimizer.param_groups:
                     group["lr"] = lr
                 self.optimizer.step()
-                self.model.eval()
             return loss.detach(), recon.detach()
 
     def _all_reduce_grads(self, loss: torch.Tensor) -> torch.Tensor:
@@ -176,6 +178,7 @@ class AETrainer:
         rows = self._rows(len(x))
         loss, recon = self._train_step(torch.as_tensor(x[rows], device=self.device),
                                        torch.as_tensor(gt[rows], device=self.device))
+        self.model.eval()
         count("train.steps")
         count("train.samples", len(x))
         return gather_global(recon.float()), float(loss)
@@ -213,6 +216,7 @@ class AETrainer:
                         gt = batch
                 x, gt = batch[rows], gt[rows]
             losses.append(self._train_step(x, gt)[0])
+        self.model.eval()
         count("train.steps", n_batches)
         count("train.samples", n_batches * bs)
         return float(torch.stack(losses).mean()) if losses else 0.0

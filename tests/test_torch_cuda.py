@@ -878,3 +878,98 @@ def test_ae_trainer_steps_fused_against_composed(cuda, monkeypatch):
     for name, v in sc.items():
         if name.endswith("running_var"):
             assert_rel(sf[name], v, name)
+
+
+def graphed_or_eager_training(cuda, route, monkeypatch, steps=40, batch=50, n=2048):
+    """``steps`` steps of ``AETrainer.train`` (one epoch of ``steps``
+    batches) at [batch, n, 3] with the body graphs on (``route``
+    "graphs") or patched off; -> a record of every step (loss,
+    parameters, Adam's moments, running statistics), the hook calls,
+    the counters, the wrappers' launches, each step's returned
+    reconstruction beside a copy, and the trainer."""
+    from geometric_adv_tpu_torch.data.datasets import PointCloudDataSet
+    from geometric_adv_tpu_torch.models import layers
+    from geometric_adv_tpu_torch.ops.cuda import bn_relu as cu_bn
+    from geometric_adv_tpu_torch.train.config import Configuration
+    from geometric_adv_tpu_torch.train.trainer import AETrainer
+    from geometric_adv_tpu_torch.utils.profiling import counters, reset_counters
+
+    if route == "eager":
+        monkeypatch.setattr(layers, "takes_body_graph", lambda module, x: False)
+    clouds = np.random.RandomState(7).rand(steps * batch, n, 3).astype(np.float32) - 0.5
+    conf = Configuration(n_input=[n, 3], loss="chamfer", batch_size=batch, learning_rate=5e-4,
+                         training_epochs=1, saver_step=None, held_out_step=None)
+    trainer = AETrainer(conf, cuda)
+    model, opt = trainer.model, trainer.optimizer
+    calls = dict.fromkeys(("model", "encoder", "before", "after"), 0)
+
+    def hook(name):
+        return lambda *a: calls.__setitem__(name, calls[name] + 1)
+
+    model.register_forward_pre_hook(hook("model"))
+    model.encoder.register_forward_pre_hook(hook("encoder"))
+    opt.register_step_pre_hook(hook("before"))
+    opt.register_step_post_hook(hook("after"))
+    record, recons = [], []
+    step = trainer._train_step
+
+    def taken(x, gt):
+        loss, recon = step(x, gt)
+        recons.append((recon, recon.clone()))
+        record.append({"loss": loss.clone(),
+                       **{k: v.clone() for k, v in model.state_dict().items()},
+                       **{f"{k}.{m}": opt.state[p][m].clone()
+                          for k, p in model.named_parameters() for m in ("exp_avg", "exp_avg_sq")}})
+        return loss, recon
+
+    trainer._train_step = taken
+    reset_counters()
+    cu.reset_launch_counts()
+    cu_bn.reset_launch_counts()
+    trainer.train(PointCloudDataSet(clouds, init_shuffle=False))
+    torch.cuda.synchronize()
+    launches = {**cu.launch_counts(), **cu_bn.launch_counts()}
+    return record, calls, counters(), launches, recons, trainer
+
+
+def test_graphed_training_steps_bit_equal_to_eager_ones(cuda, monkeypatch):
+    """Forty steps of ``AETrainer.train`` at [50, 2048, 3] with the
+    encoder's and decoder's body graphs against the same steps with the
+    graph route patched off: every step's loss, parameters, Adam's
+    moments and running statistics bit-equal; the hooks on the model, the
+    encoder and the optimizer once a step; one capture and 38 replays;
+    each wrapper's launches as the eager run's; every returned
+    reconstruction unchanged by the steps after it."""
+    steps = 40
+    graphed = graphed_or_eager_training(cuda, "graphs", monkeypatch, steps)
+    record, calls, counts, launches, recons, trainer = graphed
+    assert counts["train.graph_captures"] == 1
+    assert counts["train.graph_replays"] == steps - 2
+    assert len(trainer.model.encoder.graphs.graphs) == len(trainer.model.decoder.graphs.graphs) == 1
+    assert all(torch.equal(got, kept) for got, kept in recons)
+    eager = graphed_or_eager_training(cuda, "eager", monkeypatch, steps)
+    assert "train.graph_replays" not in eager[2]
+    assert calls == eager[1] == dict.fromkeys(("model", "encoder", "before", "after"), steps)
+    assert launches == eager[3] and launches["bn_relu_forward_cuda"] == 5 * steps
+    assert len(record) == len(eager[0]) == steps
+    for i, (got, want) in enumerate(zip(record, eager[0])):
+        for name, t in want.items():
+            assert torch.equal(got[name], t), f"step {i}: {name}"
+
+
+def test_partial_fit_of_another_batch_stays_eager(cuda, monkeypatch):
+    """After the trainer's batch of 50 was captured, ``partial_fit`` on 7
+    clouds, twice, runs eager: no replay, no capture, the key seen
+    twice."""
+    from geometric_adv_tpu_torch.utils.profiling import counters
+
+    *_, trainer = graphed_or_eager_training(cuda, "graphs", monkeypatch, steps=4)
+    replays = counters()["train.graph_replays"]
+    x = np.random.RandomState(8).rand(7, 2048, 3).astype(np.float32) - 0.5
+    for _ in range(2):
+        recon, loss = trainer.partial_fit(x)
+        assert np.isfinite(loss) and recon.shape == (7, 2048, 3)
+    assert counters()["train.graph_replays"] == replays == 2
+    assert counters()["train.graph_captures"] == 1
+    assert len(trainer.model.encoder.graphs.graphs) == 1
+    assert sorted(trainer.model.encoder.graphs.seen.values()) == [2]
